@@ -1,7 +1,8 @@
-"""Decoder-only transformer LM with dense and paged KV-cached decode.
+"""Decoder-only transformer LM: training, and dense and paged KV-cached
+decode.
 
 Counterpart of ``neuralnetworklibrary_tpu/nn/transformer.py`` for the
-serving path: :class:`CausalSelfAttention`, :class:`MLP`,
+training and serving paths: :class:`CausalSelfAttention`, :class:`MLP`,
 :class:`TransformerBlock`, :class:`TransformerLM` and :func:`init_cache`.
 Module attribute names are the flax parameter names (``word_embed``,
 ``pos_embed``, ``block_{i}.ln1``, ``.attn.qkv``, ``.attn.out``, ``.ln2``,
@@ -18,6 +19,17 @@ batch-1 cache (``init_cache(model, 1, paged=False)``) without a clone.
 Paged decode of one token per slot goes through the hand-written CUDA
 kernel (``ops.paged_attention``) when ``paged_attention`` is True (the
 default); else, and for T > 1, through the plain gather path.
+
+Full-sequence attention takes the flash path (``ops.flash_attention``, the
+CUDA flash kernels on CUDA tensors) when the model's ``flash_attention``
+says so, as the JAX dispatch (transformer.py:574-599) does; else the
+einsum path.  Dropout (embeddings, attention probabilities, MLP output)
+runs only when a call passes ``train=True``, as the JAX ``__call__(x,
+train=...)`` does: ``model.train()`` alone does not switch it on.  The
+attention-probability dropout of the flash path is the kernels' hash mask,
+seeded per call by an int32 drawn from the ``generator`` given (else from
+torch's default CPU generator); every other dropout uses torch's RNG, so it
+is statistically, not bitwise, the JAX model's.
 """
 
 from __future__ import annotations
@@ -29,6 +41,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from neuralnetworklibrary_tpu_torch.ops.flash_attention import flash_attention
 from neuralnetworklibrary_tpu_torch.ops.paged_attention import paged_attention
 
 _NEG_INF = -1e30
@@ -52,12 +65,15 @@ class CausalSelfAttention(nn.Module):
     ``n_kv_heads`` < n_heads is grouped-query attention (query head h reads
     kv head h // (H/Hkv)); ``window`` > 0 lets query t see keys
     (t - window, t]; ``sinks`` adds a learned per-head logit that joins
-    every softmax row and whose mass is discarded.
+    every softmax row and whose mass is discarded; ``drop`` is the
+    attention-probability dropout of training calls.
     """
 
     def __init__(self, d_model: int, n_heads: int, *, n_kv_heads: int = 0,
-                 window: int = 0, sinks: bool = False, device=None):
+                 window: int = 0, sinks: bool = False, drop: float = 0.0,
+                 device=None):
         super().__init__()
+        self.drop = drop
         H, Hkv = n_heads, n_kv_heads or n_heads
         if H % Hkv:
             raise ValueError(f"n_heads {H} must be a multiple of "
@@ -75,9 +91,9 @@ class CausalSelfAttention(nn.Module):
         rep = self.n_heads // self.n_kv_heads
         return t if rep == 1 else t.repeat_interleave(rep, dim=2)
 
-    def _attend(self, q, k, v, mask):
+    def _attend(self, q, k, v, mask, drop: float = 0.0):
         """Masked softmax attention over explicit k/v; mask broadcasts to
-        (B, H, T, S)."""
+        (B, H, T, S); ``drop`` > 0 drops probabilities (torch RNG)."""
         att = torch.einsum("bqhd,bkhd->bhqk", q, self._expand(k)) \
             / math.sqrt(self.head_dim)
         att = att.masked_fill(~mask, _NEG_INF)
@@ -87,7 +103,22 @@ class CausalSelfAttention(nn.Module):
             s = self.sink.to(att.dtype)[None, :, None, None].expand(
                 *att.shape[:3], 1)
             att = torch.softmax(torch.cat([att, s], -1), dim=-1)[..., :-1]
+        if drop > 0.0:
+            att = F.dropout(att, drop)
         out = torch.einsum("bhqk,bkhd->bqhd", att, self._expand(v))
+        return out.reshape(q.shape[0], q.shape[1], -1)
+
+    def _flash(self, q, k, v, train, generator):
+        """Full-sequence attention through ``ops.flash_attention`` on the
+        kv heads expanded to H (``expand_kv``, transformer.py:592)."""
+        rate, seed = 0.0, None
+        if train and self.drop > 0.0:
+            rate = self.drop
+            seed = int(torch.randint(-(1 << 31), 1 << 31, (),
+                                     generator=generator))
+        out = flash_attention(q, self._expand(k), self._expand(v),
+                              window=self.window, sink=self.sink,
+                              dropout=rate, dropout_seed=seed)
         return out.reshape(q.shape[0], q.shape[1], -1)
 
     def _band(self, keys, q_pos):
@@ -98,8 +129,10 @@ class CausalSelfAttention(nn.Module):
         return mask
 
     def forward(self, x, cache: Optional[dict] = None, offset=None,
-                block_table=None, paged_kernel: bool = True):
-        """x (B, T, D).  Without ``cache``: full-sequence causal attention.
+                block_table=None, paged_kernel: bool = True,
+                train: bool = False, flash: bool = False, generator=None):
+        """x (B, T, D).  Without ``cache``: full-sequence causal attention,
+        through the flash op when ``flash``, with dropout when ``train``.
         With ``cache`` (this layer's dict): decode at ``offset`` — an int
         shared by all rows, or a (B,) tensor of per-row positions; K/V of
         the T new tokens are written into the cache in place first."""
@@ -110,9 +143,12 @@ class CausalSelfAttention(nn.Module):
         k = k.reshape(B, T, Hkv, hd)
         v = v.reshape(B, T, Hkv, hd)
         dev = x.device
-        if cache is None:
+        if cache is None and flash:
+            out = self._flash(q, k, v, train, generator)
+        elif cache is None:
             pos = torch.arange(T, device=dev)
-            out = self._attend(q, k, v, self._band(pos, pos))
+            out = self._attend(q, k, v, self._band(pos, pos),
+                               self.drop if train else 0.0)
         elif "pool_k" in cache:
             out = self._paged(q, k, v, cache, offset, block_table,
                               paged_kernel)
@@ -165,46 +201,60 @@ class CausalSelfAttention(nn.Module):
 
 
 class MLP(nn.Module):
-    """Feed-forward block: fc_in, tanh-approximate GELU, fc_out."""
+    """Feed-forward block: fc_in, tanh-approximate GELU, fc_out, then
+    dropout of rate ``drop`` in training calls."""
 
-    def __init__(self, d_model: int, d_ff: int, device=None):
+    def __init__(self, d_model: int, d_ff: int, drop: float = 0.0,
+                 device=None):
         super().__init__()
+        self.drop = drop
         self.fc_in = nn.Linear(d_model, d_ff, device=device)
         self.fc_out = nn.Linear(d_ff, d_model, device=device)
 
-    def forward(self, x):
-        return self.fc_out(F.gelu(self.fc_in(x), approximate="tanh"))
+    def forward(self, x, train: bool = False):
+        h = self.fc_out(F.gelu(self.fc_in(x), approximate="tanh"))
+        return F.dropout(h, self.drop) if train and self.drop > 0.0 else h
 
 
 class TransformerBlock(nn.Module):
     """Pre-norm block: x + attn(ln1(x)), then + mlp(ln2(x)) with a
-    4*d_model hidden width."""
+    ``d_ff`` hidden width (0: 4*d_model); ``drop`` reaches the attention
+    probabilities and the MLP output."""
 
-    def __init__(self, d_model: int, n_heads: int, *, n_kv_heads: int = 0, window: int = 0, sinks: bool = False,
-                 rms_norm: bool = False, norm_eps: float = 1e-6,
-                 device=None):
+    def __init__(self, d_model: int, n_heads: int, *, d_ff: int = 0,
+                 drop: float = 0.0, n_kv_heads: int = 0, window: int = 0,
+                 sinks: bool = False, rms_norm: bool = False,
+                 norm_eps: float = 1e-6, device=None):
         super().__init__()
         norm = nn.RMSNorm if rms_norm else nn.LayerNorm
         self.ln1 = norm(d_model, eps=norm_eps, device=device)
         self.attn = CausalSelfAttention(d_model, n_heads,
                                         n_kv_heads=n_kv_heads, window=window,
-                                        sinks=sinks, device=device)
+                                        sinks=sinks, drop=drop, device=device)
         self.ln2 = norm(d_model, eps=norm_eps, device=device)
-        self.mlp = MLP(d_model, 4 * d_model, device=device)
+        self.mlp = MLP(d_model, d_ff or 4 * d_model, drop, device=device)
 
     def forward(self, x, cache=None, offset=None, block_table=None,
-                paged_kernel: bool = True):
+                paged_kernel: bool = True, train: bool = False,
+                flash: bool = False, generator=None):
         x = x + self.attn(self.ln1(x), cache, offset, block_table,
-                          paged_kernel)
-        return x + self.mlp(self.ln2(x))
+                          paged_kernel, train, flash, generator)
+        return x + self.mlp(self.ln2(x), train)
 
 
 class TransformerLM(nn.Module):
     """Causal LM: token + learned position embeddings, ``n_layers`` pre-norm
-    blocks with a 4*d_model GELU MLP, final norm, decoder tied to the token
-    embedding.  Returns (logits, h) like the JAX model.  Inference only so
-    far: there is no dropout, so it computes what the JAX model computes
-    with ``train=False``.
+    blocks with a ``d_ff`` GELU MLP (0: 4*d_model), final norm, decoder
+    tied to the token embedding.  Returns (logits, h) like the JAX model.
+    ``drop`` (default 0.1, as in JAX) acts in calls with ``train=True``.
+
+    ``flash_attention``: True sends full-sequence attention through
+    ``ops.flash_attention`` (its CUDA kernels on the card, its plain version
+    on the CPU), False through the einsum path, None (auto) through flash
+    exactly when the input lies on a CUDA device.  It is read at every call.
+    ``pad_token`` is kept for the data side, as in JAX.  Layer groups for
+    the Learner: ``layer_group_prefixes`` (backbone, then the tied
+    embedding as head) and ``head_prefixes``.
 
     paged_kv_blocks > 0 makes decode use a shared paged KV pool of that
     many blocks of ``paged_kv_block`` tokens (row 0 is the trash block that
@@ -217,7 +267,9 @@ class TransformerLM(nn.Module):
     """
 
     def __init__(self, vocab_size: int, d_model: int = 256, n_heads: int = 8,
-                 n_layers: int = 4, max_len: int = 512,
+                 n_layers: int = 4, max_len: int = 512, d_ff: int = 0,
+                 drop: float = 0.1, pad_token: int = 1,
+                 flash_attention: Optional[bool] = None,
                  n_kv_heads: int = 0, window: int = 0,
                  sinks: bool = False, norm: str = "layernorm",
                  norm_eps: float = 1e-6, paged_kv_blocks: int = 0,
@@ -234,13 +286,16 @@ class TransformerLM(nn.Module):
         self.paged_kv_blocks, self.paged_kv_block = (paged_kv_blocks,
                                                      paged_kv_block)
         self.paged_attention = paged_attention
+        self.d_ff, self.drop, self.pad_token = d_ff, drop, pad_token
+        self.flash_attention = flash_attention
         self.word_embed = nn.Parameter(
             torch.empty(vocab_size, d_model, device=dev).normal_(0, 0.02))
         self.pos_embed = nn.Parameter(
             torch.empty(max_len, d_model, device=dev).normal_(0, 0.02))
         for i in range(n_layers):
             self.add_module(f"block_{i}", TransformerBlock(
-                d_model, n_heads, n_kv_heads=n_kv_heads, window=window, sinks=sinks,
+                d_model, n_heads, d_ff=d_ff, drop=drop,
+                n_kv_heads=n_kv_heads, window=window, sinks=sinks,
                 rms_norm=norm == "rmsnorm", norm_eps=norm_eps, device=dev))
         self.ln_f = (nn.RMSNorm if norm == "rmsnorm" else nn.LayerNorm)(
             d_model, eps=norm_eps, device=dev)
@@ -249,16 +304,28 @@ class TransformerLM(nn.Module):
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
 
+    @property
+    def head_prefixes(self):
+        return ("word_embed",)
+
+    @property
+    def layer_group_prefixes(self):
+        blocks = tuple(f"block_{i}" for i in range(self.n_layers))
+        return (("pos_embed", "ln_f") + blocks, ("word_embed",))
+
     def blocks(self):
         return [getattr(self, f"block_{i}") for i in range(self.n_layers)]
 
     def forward(self, x, decode: bool = False, offsets=None,
-                block_table=None, cache: Optional[dict] = None):
+                block_table=None, cache: Optional[dict] = None,
+                train: bool = False, generator=None):
         """x (B, T) token ids.  ``decode=True`` needs ``cache`` (from
         :func:`init_cache`) and writes it in place.  Positions start at
         ``offsets``: an int for every row, or a (B,) tensor per row; by
         default at the cache's shared counter ``cache["idx"]``, which then
-        advances by T.  Paged caches need ``block_table`` (B, MB) int32."""
+        advances by T.  Paged caches need ``block_table`` (B, MB) int32.
+        ``train=True`` applies dropout; ``generator`` (a CPU
+        ``torch.Generator``) seeds the flash kernels' dropout."""
         B, T = x.shape
         if T > self.max_len:
             raise ValueError(f"sequence length {T} > max_len {self.max_len}")
@@ -281,9 +348,14 @@ class TransformerLM(nn.Module):
                                        + torch.arange(T, device=x.device)]
         else:
             h = h + self.pos_embed[:T][None]
+        if train and self.drop > 0.0:
+            h = F.dropout(h, self.drop)
+        flash = not decode and (x.is_cuda if self.flash_attention is None
+                                else bool(self.flash_attention))
         for i, blk in enumerate(self.blocks()):
             h = blk(h, cache[f"block_{i}"]["attn"] if decode else None,
-                    offset, block_table, self.paged_attention)
+                    offset, block_table, self.paged_attention, train, flash,
+                    generator)
         h = self.ln_f(h)
         return F.linear(h, self.word_embed), h
 
