@@ -24,10 +24,27 @@ name and power limit from nvidia-smi):
           configuration (bf16, B 8, T 1024, Adam2, lr 1e-4, wd 1e-6, drop 0),
           10 train1minibatch steps on one fixed batch, then one evaluate.
           Flash kernel launches are counted over (b).
+- lstm:   K6 (LSTM forward scan) and K7 (backward scan) against their
+          plain versions on the same bf16 inputs and residuals, B 1, 3, 64
+          x T 1, 7, 75 x H 24, 400, 1150 and three shapes for the kernels'
+          other paths, nonzero (h0, c0); and the
+          autograd Function end to end (K6, K7 and the weight-gradient
+          product) on the card against the same Function on the CPU, xp in
+          float32 and in bf16.
+- lm:     the AWD-LSTM 400-1150-3 of bench.py's bench_lm (vocab 30,001, bs
+          64, bptt 75) through the port's Learner, on a random-token corpus
+          built as bench.py builds it: (a) one f32 forward/backward at B 4,
+          kernel path against the f32 step loop, and the time of one at
+          B 64 on each path; (b) Adam2, lr 1e-3, wd
+          1e-6, RegSeqCrossEntropyLoss(2, 1), default drops: 10
+          train1minibatch steps on the loader's first window, then
+          evaluate('val') with LanguageModelAccuracy; K6/K7 launches are
+          counted over (b); (c) predict_from_string, k 1, 16 new tokens,
+          with its K6 launches counted.
 - timing: CUDA-event medians with the L2 cache flushed before each call.
 
---profile adds torch.profiler breakdowns by kernel of one more serve run
-and of one more train step.
+--profile adds torch.profiler breakdowns by kernel of one more serve run,
+of one more train step and of one more AWD-LSTM step.
 
 Then a "kernels" line with every ported kernel, and last the line
 {"ok": true, "device": {...}}.  Any failure exits non-zero; no phase
@@ -68,6 +85,30 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (3e-2, 1e-2)}
 GPT2 = dict(vocab_size=50257, d_model=768, n_heads=12, n_layers=12,
             max_len=1024, norm_eps=1e-5)
+LSTM_SOURCE = "neuralnetworklibrary_tpu_torch/csrc/lstm_scan.cu"
+LSTM_REPLACES = {"lstm_fwd": "neuralnetworklibrary_tpu/ops/pallas_lstm.py:49",
+                 "lstm_bwd": "neuralnetworklibrary_tpu/ops/pallas_lstm.py:138"}
+# K6/K7 against their plain versions on the same inputs, elementwise
+# |got - want| <= atol + rtol*|want|.  Both round to bf16 at the same
+# places and differ only in the order of the float32 sums, so a stored
+# bf16 value (ys, cs, gates) may round the other way: one bf16 ulp, at most
+# 2**-7 of the value (the forward's rtol); the float32 carry then drifts by
+# what those flips feed into later steps, which the atol (one bf16 ulp at
+# magnitude 1) covers.  K7 rounds each step's dgates to bf16 for the next
+# dh product, so a flip there moves dh by an ulp of dgates times |w|,
+# summed over 4H terms and carried over T steps: (1e-2, 1e-2).
+LSTM_TOL = {"fwd": (4e-3, 2 ** -7), "bwd": (1e-2, 1e-2)}
+# the autograd Function end to end, card against CPU: outputs as the
+# forward above; each gradient within 2e-2 of its largest entry (dw sums
+# T*B products of bf16 residuals, each off by at most an ulp)
+LSTM_GRAD_TOL = 2e-2
+# the LM at f32, kernel path against the float32 step loop: the kernel
+# path rounds xp, w_hh and each step's h to bf16 (2**-9 relative), the
+# loop does not.  The loss is a mean over 300 tokens' CE and the AR/TAR
+# terms: 1e-3 relative; each parameter's gradient within 3e-2 of its
+# largest entry (about 8 bf16 ulps).
+LM_LOSS_RTOL, LM_GRAD_TOL = 1e-3, 3e-2
+AWD_LSTM = dict(B=64, bptt=75, vocab=30000, steps=10, val_windows=6)
 
 
 def emit(obj):
@@ -286,16 +327,24 @@ def flash_kernels(q, k, v, do, window, dropout, seed):
     return o, lse, dq, dk, dv
 
 
-def flash_errors(got, want, dtype):
-    """({name: max |err|}, the largest share of its tolerance any element
-    uses) for o, lse, dq, dk, dv; the check passes while the share <= 1."""
-    atol, rtol = FLASH_TOL[dtype]
+def tol_share(got, want, tol, names):
+    """({name: max |err|}, the largest share of its tolerance (atol, rtol)
+    any element uses) for tensors compared in float32; a check passes while
+    the share <= 1."""
+    atol, rtol = tol
     errs, share = {}, 0.0
-    for name, g, w in zip(("o", "lse", "dq", "dk", "dv"), got, want):
-        diff = (g.float() - w).abs()
+    for name, g, w in zip(names, got, want):
+        diff = (g.float() - w.float()).abs()
         errs[name] = float(diff.max())
-        share = max(share, float((diff / (atol + rtol * w.abs())).max()))
+        share = max(share, float((diff / (atol + rtol * w.float().abs()))
+                                 .max()))
     return errs, share
+
+
+def flash_errors(got, want, dtype):
+    """tol_share for o, lse, dq, dk, dv at the flash tolerance of dtype."""
+    return tol_share(got, want, FLASH_TOL[dtype],
+                     ("o", "lse", "dq", "dk", "dv"))
 
 
 def phase_flash_kernel(seed):
@@ -535,7 +584,7 @@ def phase_serve(seed, profile=False):
     return launches
 
 
-def profile_step(step):
+def profile_step(step, phase="train_profile"):
     """Device time by kernel over one train step under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -556,7 +605,7 @@ def profile_step(step):
             rows.append((dev_us, evt.key, evt.count))
     rows.sort(reverse=True)
     total_ms = sum(r[0] for r in rows) / 1e3
-    emit({"phase": "train_profile", "wall_ms_profiled": wall * 1e3,
+    emit({"phase": phase, "wall_ms_profiled": wall * 1e3,
           "device_ms": total_ms,
           "device_busy_share": total_ms / (wall * 1e3),
           "top_kernels": [{"name": k[:90], "ms": us / 1e3, "calls": n,
@@ -792,11 +841,351 @@ def phase_timing(seed):
     return rows
 
 
+def lstm_case(rng, B, T, H):
+    """Random time-major K6/K7 inputs on the card: xp (T, B, 4H) and w
+    (H, 4H) in bf16, nonzero h0/c0 and upstream gradients in float32."""
+    def normal(scale, *shape):
+        return torch.from_numpy(rng.normal(0, scale, shape)
+                                .astype(np.float32)).cuda()
+
+    return (normal(0.5, T, B, 4 * H).to(torch.bfloat16),
+            normal(1.0 / np.sqrt(H), H, 4 * H).to(torch.bfloat16),
+            normal(0.3, B, H), normal(0.3, B, H), normal(1.0, T, B, H),
+            normal(1.0, B, H), normal(1.0, B, H))
+
+
+def lstm_residuals(c0, cs, w):
+    """(wT, cprev) as the autograd Function hands them to K7."""
+    cprev = torch.cat([c0.to(torch.bfloat16)[None], cs[:-1]]).contiguous()
+    return w.t().contiguous(), cprev
+
+
+def phase_lstm_kernel(seed):
+    from neuralnetworklibrary_tpu_torch.ops.lstm_scan import (
+        kernel_plan,
+        lstm_bwd,
+        lstm_fwd,
+        lstm_scan,
+        reference_lstm_bwd,
+        reference_lstm_fwd,
+    )
+
+    rng = np.random.default_rng(seed + 6)
+    fwd_names = ("ys", "cs", "gates", "hT", "cT")
+    bwd_names = ("dgates", "dh0", "dc0")
+    worst, worst_share, n_cases = {}, {"fwd": 0.0, "bwd": 0.0}, 0
+    main_err = {"lstm_fwd": 0.0, "lstm_bwd": 0.0}
+    shapes = [(B, T, H) for B in (1, 3, 64) for T in (1, 7, 75)
+              for H in (24, 400, 1150)]
+    # the kernels' other paths: odd H (per-element staging, 4-byte loads in
+    # K7) and more cell items than the threads prefetch for (K7 at B 128,
+    # K6 at B 1100)
+    shapes += [(3, 7, 25), (128, 7, 1150), (1100, 3, 24)]
+    for B, T, H in shapes:
+        xp, w, h0, c0, dys, dhT, dcT = lstm_case(rng, B, T, H)
+        got = lstm_fwd(xp, w, h0, c0)
+        want = reference_lstm_fwd(xp, w, h0, c0)
+        wT, cprev = lstm_residuals(c0, want[1], w)
+        res = (wT, want[2], want[1], cprev, dys, dhT, dcT)
+        bgot = lstm_bwd(*res)
+        bwant = reference_lstm_bwd(*res)
+        torch.cuda.synchronize()
+        for kind, g, wv, names in (("fwd", got, want, fwd_names),
+                                   ("bwd", bgot, bwant, bwd_names)):
+            errs, share = tol_share(g, wv, LSTM_TOL[kind], names)
+            worst_share[kind] = max(worst_share[kind], share)
+            for n, e in errs.items():
+                worst[n] = max(worst.get(n, 0.0), e)
+            if not share <= 1.0:
+                fail(f"lstm {kind} B={B} T={T} H={H}: max|err| {errs} "
+                     f"past {LSTM_TOL[kind]}")
+            if (B, T) == (64, 75) and H in (400, 1150):
+                key = "lstm_" + kind
+                main_err[key] = max(main_err[key], max(errs.values()))
+        n_cases += 1
+
+    # the autograd Function end to end: on the card (K6, K7 and the dw
+    # product) against the same Function on the CPU (its plain versions)
+    def run(args, grads):
+        args = [a.detach().requires_grad_() for a in args]
+        outs = lstm_scan(*args)
+        torch.autograd.backward(outs, grads)
+        return ([o.detach().float().cpu() for o in outs],
+                [a.grad.float().cpu() for a in args])
+
+    e2e = []
+    for B, T, H in ((3, 7, 24), (64, 75, 1150)):
+        for dtype in (torch.float32, torch.bfloat16):
+            xp, w, h0, c0, dys, dhT, dcT = lstm_case(rng, B, T, H)
+            args = [xp.transpose(0, 1).to(dtype), w.to(dtype), h0.to(dtype),
+                    c0.to(dtype)]
+            grads = [dys.transpose(0, 1).to(dtype), dhT.to(dtype),
+                     dcT.to(dtype)]
+            card = run(args, grads)
+            cpu = run([a.cpu() for a in args], [g.cpu() for g in grads])
+            errs, share = tol_share(card[0], cpu[0], LSTM_TOL["fwd"],
+                                    ("ys", "hT", "cT"))
+            g_err = {n: float((g - r).abs().max()) / float(r.abs().max())
+                     for n, g, r in zip(("dxp", "dw", "dh0", "dc0"), card[1],
+                                        cpu[1])}
+            if not (share <= 1.0 and max(g_err.values()) <= LSTM_GRAD_TOL):
+                fail(f"lstm_scan end to end B={B} T={T} H={H} {dtype}: "
+                     f"outputs {errs}, gradient errors / max {g_err}")
+            e2e.append({"B": B, "T": T, "H": H,
+                        "xp_dtype": str(dtype).replace("torch.", ""),
+                        "out_max_abs_err": errs, "out_share_of_tol": share,
+                        "grad_err_over_max": g_err})
+    emit({"phase": "kernel", "kernel": "lstm_scan (K6 fwd, K7 bwd)",
+          "cases": n_cases, "max_abs_err": worst,
+          "worst_share_of_tol": worst_share,
+          "tol_atol_rtol": LSTM_TOL,
+          "main_shape_max_abs_err": main_err,
+          "plan_1150": {k: kernel_plan(k, 64, 1150) for k in ("fwd", "bwd")},
+          "plan_400": {k: kernel_plan(k, 64, 400) for k in ("fwd", "bwd")},
+          "autograd_end_to_end": e2e, "grad_tol_over_max": LSTM_GRAD_TOL})
+    return main_err
+
+
+def lm_corpus(rng, n_tokens, vocab):
+    """A random-token TextDataset with bench.py's stoi (bench.py:181-191)."""
+    from neuralnetworklibrary_tpu_torch.applications.text import TextDataset
+
+    ds = object.__new__(TextDataset)
+    ds.stoi = {f"w{i}": i for i in range(vocab)}
+    ds.stoi["_pad_"] = 1
+    ds.texts = [rng.integers(0, vocab, 2000).tolist()
+                for _ in range(n_tokens // 2000 + 1)]
+    ds.num_tokens = sum(len(t) for t in ds.texts)
+    ds.labels = [0] * len(ds.texts)
+    ds.label_dict = {0: 0}
+    return ds
+
+
+def phase_lm(seed, profile=False):
+    import tempfile
+
+    from neuralnetworklibrary_tpu_torch.applications.text import (
+        LanguageModelAccuracy,
+        LanguageModelDataObj,
+        LanguageModelNet,
+        RegSeqCrossEntropyLoss,
+        predict_from_string,
+    )
+    from neuralnetworklibrary_tpu_torch.learner import Learner
+    from neuralnetworklibrary_tpu_torch.ops.lstm_scan import (
+        lstm_bwd,
+        lstm_fwd,
+    )
+
+    cfg = AWD_LSTM
+    B, T, steps = cfg["B"], cfg["bptt"], cfg["steps"]
+    rng = np.random.default_rng(seed + 7)
+    torch.manual_seed(seed)
+    t0 = time.perf_counter()
+    data = LanguageModelDataObj(
+        lm_corpus(rng, B * (steps * T + T), cfg["vocab"]),
+        lm_corpus(rng, B * (cfg["val_windows"] * T + T), cfg["vocab"]),
+        None, B, T, seed=seed)
+    model = LanguageModelNet.from_dataobj(data)     # 400-1150-3, on cuda
+    setup_s = time.perf_counter() - t0
+    L = model.num_layers
+    loss_fn = RegSeqCrossEntropyLoss(2.0, 1.0)
+    batch = data.train_dl.peek()
+
+    # (a) f32 at B 4 from a zero carry: loss and every gradient, kernel
+    # path against the float32 step loop
+    x = torch.from_numpy(batch.xs[0][:4]).long().cuda()
+    y = torch.from_numpy(batch.y[:4]).long().cuda()
+    res = []
+    for kernel in (None, False):
+        model.lstm_kernel = kernel
+        model.reset_carry(4)
+        model.zero_grad(set_to_none=True)
+        loss = loss_fn(model(x), y)
+        loss.backward()
+        res.append((float(loss.detach()), {n: p.grad.clone()
+                                           for n, p in model.named_parameters()}))
+    # the port's default on the card (the JAX package keeps its kernels
+    # behind an opt-in gate): one f32 forward + backward at B 64 on each
+    # path, median of 3 after a warm-up, host clock around synchronised
+    # work
+    xb = torch.from_numpy(batch.xs[0]).long().cuda()
+    yb = torch.from_numpy(batch.y).long().cuda()
+    path_ms = {}
+    for name, kernel in (("kernel", None), ("f32_loop", False)):
+        model.lstm_kernel = kernel
+        times = []
+        for _ in range(4):
+            model.reset_carry()
+            model.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss_fn(model(xb), yb).backward()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        path_ms[name] = statistics.median(times[1:])
+    model.lstm_kernel = None
+    model.zero_grad(set_to_none=True)
+    model.reset_carry()
+    loss_err = abs(res[0][0] - res[1][0])
+    g_err = {n: float((res[0][1][n] - g).abs().max() / g.abs().max())
+             for n, g in res[1][1].items()}
+    del res
+    if not loss_err <= LM_LOSS_RTOL * abs(loss.item()):
+        fail(f"AWD-LSTM f32 kernel vs loop loss: |err| {loss_err}")
+    if not max(g_err.values()) <= LM_GRAD_TOL:
+        fail(f"AWD-LSTM f32 kernel vs loop gradients / max: {g_err}")
+
+    # (b) bench_lm's configuration through the Learner; (c) generation
+    with tempfile.TemporaryDirectory() as tmp:
+        learner = Learner(tmp, data, model, "Adam2", loss_func=loss_fn,
+                          seed=seed)
+        learner.init_optimizer(wd=1e-6)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lstm_fwd.launches = lstm_bwd.launches = 0
+        losses, step_s = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            losses.append(learner.train1minibatch(batch, 1e-3))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        val = learner.evaluate("val", [LanguageModelAccuracy()])
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        launches = {"lstm_fwd": lstm_fwd.launches,
+                    "lstm_bwd": lstm_bwd.launches}
+        peak = torch.cuda.max_memory_allocated()
+        prompt = "w5 w6 w7 w8 w9"
+        lstm_fwd.launches = 0
+        text = predict_from_string(learner, prompt, 16, k=1)
+        torch.cuda.synchronize()
+        gen_launches = lstm_fwd.launches
+        if profile:
+            profile_step(lambda: learner.train1minibatch(batch, 1e-3),
+                         "lm_profile")
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"AWD-LSTM train losses not finite and falling: {losses}")
+    if not np.isfinite(val[0]):
+        fail(f"AWD-LSTM evaluate gave {val}")
+    n_eval = len(data.val_dl)
+    want = {"lstm_fwd": L * (steps + n_eval), "lstm_bwd": L * steps}
+    if launches != want:
+        fail(f"lstm kernel launches {launches} != {want}")
+    words = text.split()
+    n_prompt = len(prompt.split())
+    if len(words) != n_prompt + 16 or not all(w in data.stoi for w in words):
+        fail(f"predict_from_string gave {text!r}")
+    if gen_launches != L * (n_prompt + 16):
+        fail(f"predict_from_string launched K6 {gen_launches} times, not "
+             f"{L} x {n_prompt + 16}")
+    steady = statistics.median(step_s[1:])
+    emit({"phase": "lm", "model": "awd-lstm 400-1150-3",
+          "vocab": len(data.stoi), "setup_s": setup_s,
+          "params": sum(p.numel() for p in model.parameters()),
+          "f32_kernel_vs_loop_loss_abs_err": loss_err,
+          "f32_kernel_vs_loop_grad_err_over_max": max(g_err.values()),
+          "f32_tol": f"loss {LM_LOSS_RTOL} x |loss|, grads {LM_GRAD_TOL} x "
+                     f"max|grad| per tensor",
+          "f32_fwd_bwd_ms_B64": path_ms,
+          "dtype": "float32 (kernels in bf16)", "B": B, "bptt": T,
+          "optimizer": "Adam2", "lr": 1e-3, "wd": 1e-6,
+          "loss": "RegSeqCrossEntropyLoss(2, 1)", "steps": steps,
+          "losses": losses, "val_loss": val[0],
+          "val_accuracy": float(val[1][0]), "eval_batches": n_eval,
+          "eval_s": eval_s, "first_step_ms": step_s[0] * 1e3,
+          "ms_per_step_median_2_to_10": steady * 1e3,
+          "tokens_per_s": B * T / steady, "peak_memory_GB": peak / 1e9,
+          "kernel_launches": launches,
+          "generated": text, "generate_k6_launches": gen_launches})
+    return launches
+
+
+def lstm_bound(B, T, H, kind):
+    """Least time of one call: the bytes it must move (each input read
+    once, each output written once) over HBM bandwidth, against the step
+    products' 2*B*T*H*4H flops at the bf16 tensor-core peak."""
+    G = 4 * H
+    if kind == "lstm_fwd":   # xp, w, h0, c0 | ys, cs, gates, hT, cT
+        nbytes = 2 * T * B * G + 2 * H * G + 8 * B * H \
+            + 4 * T * B * H + 2 * T * B * G + 8 * B * H
+    else:   # wT, gates, cs, cprev, dys, dhT, dcT | dgates, dh0, dc0
+        nbytes = 2 * G * H + 2 * T * B * G + 4 * T * B * H \
+            + 4 * T * B * H + 8 * B * H + 4 * T * B * G + 8 * B * H
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * B * T * H * G / PEAK_OPS[torch.bfloat16] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_lstm_timing(seed):
+    from neuralnetworklibrary_tpu_torch.ops.lstm_scan import (
+        lstm_bwd,
+        lstm_fwd,
+        reference_lstm_bwd,
+        reference_lstm_fwd,
+    )
+
+    rng = np.random.default_rng(seed + 8)
+    timer = Timer()
+    rows = {}
+    B, T = AWD_LSTM["B"], AWD_LSTM["bptt"]
+    for H, I in ((1150, 1150), (400, 1150)):   # layers 1 and 2 of the LM
+        xp, w, h0, c0, dys, dhT, dcT = lstm_case(rng, B, T, H)
+        _, cs, gates, _, _ = lstm_fwd(xp, w, h0, c0)
+        wT, cprev = lstm_residuals(c0, cs, w)
+        res = (wT, gates, cs, cprev, dys, dhT, dcT)
+        ms = {"lstm_fwd": timer.ms(lambda: lstm_fwd(xp, w, h0, c0)),
+              "lstm_bwd": timer.ms(lambda: lstm_bwd(*res))}
+        plain = {"lstm_fwd": timer.ms(lambda: reference_lstm_fwd(
+                     xp, w, h0, c0), reps=5),
+                 "lstm_bwd": timer.ms(lambda: reference_lstm_bwd(*res),
+                                      reps=5)}
+        # layer-level yardstick the port never calls: cuDNN's LSTM in bf16
+        # on the same layer, which also does the input projection
+        lstm = torch.nn.LSTM(I, H, batch_first=True).cuda().to(
+            torch.bfloat16)
+        x = torch.from_numpy(rng.normal(0, 1, (B, T, I)).astype(
+            np.float32)).cuda().to(torch.bfloat16).requires_grad_()
+        hc = (h0[None].to(torch.bfloat16), c0[None].to(torch.bfloat16))
+        wrt = [x] + list(lstm.parameters())
+        with torch.no_grad():
+            lib_fwd = timer.ms(lambda: lstm(x, hc))
+        out = lstm(x, hc)[0]
+        gy = torch.randn_like(out)
+        lib_bwd = timer.ms(lambda: torch.autograd.grad(
+            out, wrt, gy, retain_graph=True))
+        lib_fwd_bwd = timer.ms(lambda: torch.autograd.grad(
+            lstm(x, hc)[0], wrt, gy))
+        library = {"lstm_fwd": lib_fwd, "lstm_bwd": lib_bwd}
+        for name in ms:
+            bound_ms, bound_by = lstm_bound(B, T, H, name)
+            row = {"ms": ms[name], "plain_ms": plain[name],
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": library[name]}
+            emit({"phase": "timing", "kernel": name, "B": B, "T": T, "H": H,
+                  **row, "ms_per_step": ms[name] / T,
+                  "plain": ("reference_lstm_fwd" if name == "lstm_fwd"
+                            else "reference_lstm_bwd") + " on the card",
+                  "library": f"torch.nn.LSTM({I}, {H}) bf16 (cuDNN), "
+                             + ("forward" if name == "lstm_fwd" else
+                                "backward alone")
+                             + "; layer-level yardstick: it also does the "
+                               "input projection",
+                  "library_fwd_bwd_ms": lib_fwd_bwd,
+                  "share_of_bound": bound_ms / ms[name]})
+            if H == 1150:   # the main path's widest layers
+                rows[name] = row
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also print device time by kernel of a serve run")
+                    help="also print device time by kernel of a serve "
+                         "run and of a train step of each model")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -814,8 +1203,11 @@ def main():
     flash_err = phase_flash_kernel(args.seed)
     launches = phase_serve(args.seed, args.profile)
     flash_launches = phase_train(args.seed, args.profile)
+    lstm_err = phase_lstm_kernel(args.seed)
+    lstm_launches = phase_lm(args.seed, args.profile)
     t = phase_timing(args.seed)[0]     # the serving path's own shape
     flash_t = phase_flash_timing(args.seed)
+    lstm_t = phase_lstm_timing(args.seed)
     kernels = [{
         "name": "paged_attention", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES, "launches": launches,
@@ -830,6 +1222,13 @@ def main():
             "launches": flash_launches[name],
             "max_abs_err": flash_err[name],
             "tol": "atol %g + rtol %g" % FLASH_TOL[torch.bfloat16], **row})
+    for name, row in lstm_t.items():
+        kind = name.split("_")[1]
+        kernels.append({
+            "name": name, "route": "cuda", "source": LSTM_SOURCE,
+            "replaces": LSTM_REPLACES[name],
+            "launches": lstm_launches[name], "max_abs_err": lstm_err[name],
+            "tol": "atol %g + rtol %g" % LSTM_TOL[kind], **row})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,11 @@ General/Learner.py).  What carries over unchanged:
 - ``freeze`` / ``unfreeze`` by layer group, each resetting the optimizer
   state as the reference does;
 - ``compute_dtype="bfloat16"``: parameters, optimizer state and the loss
-  stay float32.
+  stay float32;
+- a model's carried state (the AWD-LSTM encoder's (h, c), JAX's ``carry``
+  collection) goes on from batch to batch in training and in evaluation
+  alike, and nothing resets it between epochs.  Here it lives in the
+  model's buffers, so ``save``/``load`` keep it with the weights.
 
 What differs: PyTorch runs eagerly, so one train step is forward,
 ``backward`` and :meth:`Optimizer.apply` in place, with no jit.  Frozen
@@ -86,7 +90,8 @@ class Learner:
     optimizer: an :class:`Optimizer` or a name from ``core.optim.opt_dict``.
     loss_func: ``loss(y_pred, y, mask=None)`` or 'default' (by target type).
     seed: seeds the CPU ``torch.Generator`` handed to the model, from which
-        it draws the flash kernels' dropout seeds.
+        it draws the flash kernels' dropout seeds and the seeds of the
+        device generators that draw the AWD-LSTM's dropout masks.
     compute_dtype: None or 'bfloat16' (autocast).
     device: defaults to cuda; without a card pass ``device='cpu'``.
     """
