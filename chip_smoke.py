@@ -41,10 +41,28 @@ name and power limit from nvidia-smi):
           evaluate('val') with LanguageModelAccuracy; K6/K7 launches are
           counted over (b); (c) predict_from_string, k 1, 16 new tokens,
           with its K6 launches counted.
-- timing: CUDA-event medians with the L2 cache flushed before each call.
+- kernel: the flash kernels' options and the dbias kernel: K1-K4 over
+          float32 and bf16, hd 64 and 128, causal and bidirectional, with
+          and without a bias, key mask off / ragged / one batch row fully
+          masked (bidirectional), dropout 0 and 0.1, at T 512, 114 and (in
+          the bidirectional case) 200, and at the T5 path's own two shapes.
+- t5:     T5-base (HF t5-base's config.json: d_model 768, 12 heads, d_ff
+          3072, 12 + 12 layers, vocab 32,128, relu MLP, RMSNorm, 32
+          relative buckets out to 128, tied head scaled by 768**-0.5) with
+          random weights from --seed through load_jax_params: (a) one f32
+          forward/backward at B 2, flash path against the einsum path, the
+          relative-bias tables included (MLPs in gelu for this check); (b)
+          bf16, B 16, source 512 (real lengths 384-512, the rest pad),
+          target 114, Adam2, lr 1e-4, drop 0.1: 10 train1minibatch steps
+          on one fixed batch, then evaluate
+          over 2 batches; (c) seq2seq_generate, greedy, 16 tokens for 2
+          sources.  K1-K4 launches are counted over (b) and (c).
+- timing: CUDA-event medians with the L2 cache flushed before each call;
+          K1-K4 also at the T5 encoder's shape.
 
---profile adds torch.profiler breakdowns by kernel of one more serve run,
-of one more train step and of one more AWD-LSTM step.
+--profile adds torch.profiler breakdowns of one more serve run and of one
+more train step of each model: device time by kernel and, for the train
+steps, the host ops with the most host time of their own.
 
 Then a "kernels" line with every ported kernel, and last the line
 {"ok": true, "device": {...}}.  Any failure exits non-zero; no phase
@@ -70,7 +88,9 @@ FLASH_SOURCE = "neuralnetworklibrary_tpu_torch/csrc/flash_attention.cu"
 FLASH_REPLACES = {
     "flash_fwd": "neuralnetworklibrary_tpu/ops/flash_attention.py:119",
     "flash_bwd_dq": "neuralnetworklibrary_tpu/ops/flash_attention.py:275",
-    "flash_bwd_dkv": "neuralnetworklibrary_tpu/ops/flash_attention.py:338"}
+    "flash_bwd_dkv": "neuralnetworklibrary_tpu/ops/flash_attention.py:338",
+    "flash_bwd_dbias": "neuralnetworklibrary_tpu/ops/flash_attention.py:419"}
+FLASH_KERNELS = tuple(FLASH_REPLACES)
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM (hopper-kernels guide, table 1)
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -83,6 +103,13 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # row at hd 64-128 (~0.1 at the worst of 4096 rows), and dq, dk by
 # sm_scale * that * |sum_c P K| ~ 0.013: the atol's share, with 2x margin.
 FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (3e-2, 1e-2)}
+# K4's dbias, elementwise |got - want| <= a * max|want| + rtol * |want| +
+# slack: it sums B tiles of dS = P * (dP - delta).  float32: only the order
+# of the sums differs (each dS term ~1e-7 relative), slack 0.  bf16: the
+# kernels take delta from the bf16-rounded o (as above), off by at most
+# c = 2**-9 * sum_d |dO_d| |o_d| in a row, which moves each dS term by
+# P * c: the slack is twice sum_b P_b * c_b for each entry (dbias_slack).
+DBIAS_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-5, 1e-3)}
 GPT2 = dict(vocab_size=50257, d_model=768, n_heads=12, n_layers=12,
             max_len=1024, norm_eps=1e-5)
 LSTM_SOURCE = "neuralnetworklibrary_tpu_torch/csrc/lstm_scan.cu"
@@ -109,6 +136,20 @@ LSTM_GRAD_TOL = 2e-2
 # largest entry (about 8 bf16 ulps).
 LM_LOSS_RTOL, LM_GRAD_TOL = 1e-3, 3e-2
 AWD_LSTM = dict(B=64, bptt=75, vocab=30000, steps=10, val_windows=6)
+# T5-base v1.0 (HF t5-base config.json; Raffel et al. 2020 "Base"), built
+# as utils/t5_convert.py's load_t5 builds it
+T5 = dict(vocab_size=32128, pad_token=0, d_model=768, n_heads=12,
+          enc_layers=12, dec_layers=12, d_ff=3072, max_src_len=512,
+          max_len=512, drop=0.1, pos_embedding="relative", rel_buckets=32,
+          rel_max_dist=128, norm="rmsnorm", norm_eps=1e-6, mlp_act="relu",
+          tied_decoder=True, logit_scale=768 ** -0.5)
+# the traffic: T5's input length, its span-corruption target at inputs 512
+# (113 tokens + eos), 16 rows (T5 trains at 128: cut to one card's smoke)
+T5_TRAFFIC = dict(B=16, src=512, src_min=384, tgt=113, steps=10,
+                  eval_batches=2, gen_tokens=16)
+# the T5 model at f32, flash path against the einsum path: the loss within
+# 1e-4 relative, each parameter's gradient within 1e-3 of its largest entry
+T5_LOSS_RTOL, T5_GRAD_TOL = 1e-4, 1e-3
 
 
 def emit(obj):
@@ -292,25 +333,33 @@ def flash_case(rng, B, T, H, hd, dtype):
             .to("cuda", dtype) for _ in range(4)]
 
 
-def flash_plain(q, k, v, do, window, dropout, seed):
+def flash_plain(q, k, v, do, window, dropout, seed, causal=True, bias=None,
+                kv_mask=None):
     """The plain version in float32 on the same inputs: o, lse (B*H, T),
-    dq, dk, dv."""
+    dq, dk, dv, and dbias when there is a bias."""
     from neuralnetworklibrary_tpu_torch.ops.flash_attention import (
         reference_flash_attention,
     )
 
     B, T, H, hd = q.shape
     qf, kf, vf = (t.float().requires_grad_() for t in (q, k, v))
+    wrt = [qf, kf, vf]
+    if bias is not None:
+        bias = bias.detach().clone().requires_grad_()
+        wrt.append(bias)
     o, lse = reference_flash_attention(
-        qf, kf, vf, 1.0 / hd ** 0.5, window, True, dropout, seed,
-        return_lse=True)
-    dq, dk, dv = torch.autograd.grad(o, (qf, kf, vf), do.float())
-    return o.detach(), lse.detach().reshape(B * H, T), dq, dk, dv
+        qf, kf, vf, 1.0 / hd ** 0.5, window, causal, dropout, seed,
+        bias=bias, kv_mask=kv_mask, return_lse=True)
+    grads = torch.autograd.grad(o, wrt, do.float())
+    return (o.detach(), lse.detach().reshape(B * H, T)) + tuple(grads)
 
 
-def flash_kernels(q, k, v, do, window, dropout, seed):
-    """K1, then K2 and K3 on the saved (o, lse): o, lse, dq, dk, dv."""
+def flash_kernels(q, k, v, do, window, dropout, seed, causal=True,
+                  bias=None, kv_mask=None):
+    """K1, then K2, K3 (and K4 with a bias) on the saved (o, lse): o, lse,
+    dq, dk, dv (, dbias)."""
     from neuralnetworklibrary_tpu_torch.ops.flash_attention import (
+        flash_bwd_dbias,
         flash_bwd_dkv,
         flash_bwd_dq,
         flash_fwd,
@@ -318,13 +367,23 @@ def flash_kernels(q, k, v, do, window, dropout, seed):
 
     B, T, H, hd = q.shape
     scale = 1.0 / hd ** 0.5
-    o, lse = flash_fwd(q, k, v, scale, window, dropout, seed)
+    kw = dict(causal=causal, bias=bias, kvm=additive_mask(kv_mask))
+    o, lse = flash_fwd(q, k, v, scale, window, dropout, seed, **kw)
     delta = ((do.float() * o.float()).sum(-1).transpose(1, 2)
              .reshape(B * H, T).contiguous())
-    dq = flash_bwd_dq(q, k, v, do, lse, delta, scale, window, dropout, seed)
-    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, scale, window, dropout,
-                           seed)
-    return o, lse, dq, dk, dv
+    args = (q, k, v, do, lse, delta, scale, window, dropout, seed)
+    out = (o, lse, flash_bwd_dq(*args, **kw)) + flash_bwd_dkv(*args, **kw)
+    if bias is not None:
+        out += (flash_bwd_dbias(*args, **kw),)
+    return out
+
+
+def additive_mask(kv_mask):
+    """The (B, T) bool key mask as the kernels take it: float32 0 / -1e30."""
+    if kv_mask is None:
+        return None
+    return torch.zeros(kv_mask.shape, device=kv_mask.device).masked_fill_(
+        ~kv_mask, -1e30)
 
 
 def tol_share(got, want, tol, names):
@@ -341,10 +400,50 @@ def tol_share(got, want, tol, names):
     return errs, share
 
 
-def flash_errors(got, want, dtype):
-    """tol_share for o, lse, dq, dk, dv at the flash tolerance of dtype."""
-    return tol_share(got, want, FLASH_TOL[dtype],
-                     ("o", "lse", "dq", "dk", "dv"))
+def flash_errors(got, want, dtype, slack=None):
+    """tol_share for o, lse, dq, dk, dv at the flash tolerance of dtype, and
+    for dbias (when there is one) at DBIAS_TOL relative to its largest
+    entry, plus the elementwise ``slack``."""
+    errs, share = tol_share(got[:5], want[:5], FLASH_TOL[dtype],
+                            ("o", "lse", "dq", "dk", "dv"))
+    if len(got) > 5:
+        a, rtol = DBIAS_TOL[dtype]
+        ref = want[5].float().abs()
+        diff = (got[5].float() - want[5].float()).abs()
+        room = a * float(ref.max()) + rtol * ref
+        if slack is not None:
+            room = room + slack
+        errs["dbias"] = float(diff.max())
+        share = max(share, float((diff / room).max()))
+    return errs, share
+
+
+def dbias_slack(q, k, v, do, o, causal, bias, kv_mask):
+    """bf16 room for K4 (see DBIAS_TOL): 2 * sum_b P_b * c_b per (h, q, k),
+    with P the undropped softmax of the plain version and c_b the bound on
+    a row's delta error from the kernels' bf16 o."""
+    q, k, do = q.float(), k.float(), do.float()
+    T, hd = q.shape[1], q.shape[3]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / hd ** 0.5 + bias
+    if kv_mask is not None:
+        s = s.masked_fill(~kv_mask[:, None, None, :], -1e30)
+    if causal:
+        s = s.masked_fill(~torch.ones(T, T, dtype=torch.bool,
+                                      device=q.device).tril(), float("-inf"))
+    c = 2 ** -9 * (do.abs() * o.float().abs()).sum(-1).transpose(1, 2)
+    return 2 * torch.einsum("bhqk,bhq->hqk", torch.softmax(s, -1), c)
+
+
+def check_flash(case, window, dropout, seed, dtype, **kw):
+    """Kernels against the plain version on one case: (errs, share)."""
+    got = flash_kernels(*case, window, dropout, seed, **kw)
+    want = flash_plain(*case, window, dropout, seed, **kw)
+    slack = None
+    if kw.get("bias") is not None and dtype == torch.bfloat16:
+        slack = dbias_slack(*case, got[0], kw.get("causal", True),
+                            kw["bias"], kw.get("kv_mask"))
+    torch.cuda.synchronize()
+    return flash_errors(got, want, dtype, slack)
 
 
 def phase_flash_kernel(seed):
@@ -383,10 +482,8 @@ def phase_flash_kernel(seed):
                     for dropout in (0.0, 0.1):
                         case = flash_case(rng, 2, T, 2, hd, dtype)
                         dseed = int(rng.integers(-2 ** 31, 2 ** 31))
-                        got = flash_kernels(*case, window, dropout, dseed)
-                        want = flash_plain(*case, window, dropout, dseed)
-                        torch.cuda.synchronize()
-                        errs, share = flash_errors(got, want, dtype)
+                        errs, share = check_flash(case, window, dropout,
+                                                  dseed, dtype)
                         worst_share = max(worst_share, share)
                         key = str(dtype).replace("torch.", "")
                         for n, e in errs.items():
@@ -399,8 +496,7 @@ def phase_flash_kernel(seed):
                         n_cases += 1
     # the training path's own shape: GPT-2 heads, bf16, B 8, T 1024
     case = flash_case(rng, 8, 1024, 12, 64, torch.bfloat16)
-    errs, share = flash_errors(flash_kernels(*case, 0, 0.0, 0),
-                               flash_plain(*case, 0, 0.0, 0), torch.bfloat16)
+    errs, share = check_flash(case, 0, 0.0, 0, torch.bfloat16)
     if not share <= 1.0:
         fail(f"flash kernels at the training shape: max|err| {errs}")
     emit({"phase": "kernel", "kernel": "flash_attention (fwd, dq, dkv)",
@@ -414,6 +510,89 @@ def phase_flash_kernel(seed):
     return {"flash_fwd": max(errs["o"], errs["lse"]),
             "flash_bwd_dq": errs["dq"],
             "flash_bwd_dkv": max(errs["dk"], errs["dv"])}
+
+
+def flash_option_case(rng, B, T, H, hd, dtype, bias, mask):
+    """Random q, k, v, do and the options: a float32 (H, T, T) bias (or
+    None) and a (B, T) key mask: None, "ragged" (row b keeps a random
+    length >= T/2, row 0 all of T) or "empty" (the last row keeps no key)."""
+    case = flash_case(rng, B, T, H, hd, dtype)
+    b = (torch.from_numpy(rng.standard_normal((H, T, T), dtype=np.float32)
+                          * 0.5).cuda() if bias else None)
+    m = None
+    if mask is not None:
+        lengths = rng.integers(T // 2, T + 1, B)
+        lengths[0] = T
+        if mask == "empty":
+            lengths[-1] = 0
+        m = (torch.arange(T)[None, :] < torch.from_numpy(lengths)[:, None])
+        m = m.cuda()
+    return case, b, m
+
+
+def phase_flash_options(seed):
+    """K1-K4 with the options the T5 path takes, against the plain
+    version; returns the worst errors at the T5 path's own two shapes."""
+    rng = np.random.default_rng(seed + 9)
+    worst, worst_share, n_cases = {}, 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for hd in (64, 128):
+            for causal in (True, False):
+                for T in ((512, 114) if causal else (512, 114, 200)):
+                    for bias in (False, True):
+                        masks = (None, "ragged") + (() if causal
+                                                    else ("empty",))
+                        for mask in masks:
+                            for dropout in (0.0, 0.1):
+                                case, b, m = flash_option_case(
+                                    rng, 2, T, 2, hd, dtype, bias, mask)
+                                dseed = int(rng.integers(-2 ** 31, 2 ** 31))
+                                errs, share = check_flash(
+                                    case, 0, dropout, dseed, dtype,
+                                    causal=causal, bias=b, kv_mask=m)
+                                worst_share = max(worst_share, share)
+                                key = str(dtype).replace("torch.", "")
+                                w = worst.setdefault(key, {})
+                                for n, e in errs.items():
+                                    w[n] = max(w.get(n, 0.0), e)
+                                if not share <= 1.0:
+                                    fail(f"flash kernels {key} hd={hd} T={T} "
+                                         f"causal={causal} bias={bias} "
+                                         f"mask={mask} dropout={dropout}: "
+                                         f"max|err| {errs} past tolerance")
+                                n_cases += 1
+    # the T5 path's own shapes: bf16, B 16, H 12, hd 64, dropout 0.1; the
+    # encoder (T 512, bidirectional, key mask of lengths 384-512, bias) and
+    # the decoder's self-attention (T 114, causal, bias)
+    main = {}
+    for name, T, causal, mask in (("encoder", 512, False, "ragged"),
+                                  ("decoder", 114, True, None)):
+        case, b, m = flash_option_case(rng, 16, T, 12, 64, torch.bfloat16,
+                                       True, mask)
+        if m is not None:
+            lengths = rng.integers(384, 513, 16)
+            m = (torch.arange(T)[None, :]
+                 < torch.from_numpy(lengths)[:, None]).cuda()
+        dseed = int(rng.integers(-2 ** 31, 2 ** 31))
+        errs, share = check_flash(case, 0, 0.1, dseed, torch.bfloat16,
+                                  causal=causal, bias=b, kv_mask=m)
+        if not share <= 1.0:
+            fail(f"flash kernels at the T5 {name} shape: max|err| {errs}")
+        main[name] = {"max_abs_err": errs, "share_of_tol": share}
+    emit({"phase": "kernel",
+          "kernel": "flash_attention options (fwd, dq, dkv, dbias)",
+          "cases": n_cases, "max_abs_err": worst,
+          "tol_atol_rtol": {str(d).replace("torch.", ""): t
+                            for d, t in FLASH_TOL.items()},
+          "dbias_tol_max_rel_rtol": {str(d).replace("torch.", ""): t
+                                     for d, t in DBIAS_TOL.items()},
+          "dbias_bf16_slack": "2 * sum_b P_b * 2**-9 * sum_d |dO||o|",
+          "worst_share_of_tol": worst_share, "t5_shapes": main})
+    errs = [main[n]["max_abs_err"] for n in main]
+    return {"flash_fwd": max(max(e["o"], e["lse"]) for e in errs),
+            "flash_bwd_dq": max(e["dq"] for e in errs),
+            "flash_bwd_dkv": max(max(e["dk"], e["dv"]) for e in errs),
+            "flash_bwd_dbias": max(e["dbias"] for e in errs)}
 
 
 def gpt2_params(seed, cfg):
@@ -585,7 +764,9 @@ def phase_serve(seed, profile=False):
 
 
 def profile_step(step, phase="train_profile"):
-    """Device time by kernel over one train step under torch.profiler."""
+    """Device time by kernel over one train step under torch.profiler, and
+    the host ops that took the most host time of their own (the step is
+    host-bound where the device is idle)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -595,22 +776,27 @@ def profile_step(step, phase="train_profile"):
         step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = []
+    rows, host = [], []
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
+            host.append((evt.self_cpu_time_total, evt.key, evt.count))
             continue
         dev_us = getattr(evt, "self_device_time_total",
                          getattr(evt, "self_cuda_time_total", 0))
         if dev_us > 0:
             rows.append((dev_us, evt.key, evt.count))
     rows.sort(reverse=True)
+    host.sort(reverse=True)
     total_ms = sum(r[0] for r in rows) / 1e3
     emit({"phase": phase, "wall_ms_profiled": wall * 1e3,
           "device_ms": total_ms,
           "device_busy_share": total_ms / (wall * 1e3),
           "top_kernels": [{"name": k[:90], "ms": us / 1e3, "calls": n,
                            "share": us / 1e3 / total_ms}
-                          for us, k, n in rows[:14]]})
+                          for us, k, n in rows[:14]],
+          "host_ms_own": sum(r[0] for r in host) / 1e3,
+          "top_host_ops": [{"name": k[:60], "ms": us / 1e3, "calls": n}
+                           for us, k, n in host[:10]]})
 
 
 def phase_train(seed, profile=False):
@@ -723,18 +909,25 @@ def phase_train(seed, profile=False):
     return launches
 
 
-def flash_bound(B, T, H, hd, kind):
+def flash_bound(B, T, H, hd, kind, causal=True, bias=False, mask=False):
     """Least time of one call at this shape: the bytes it must move (each
     input read once, each output written once) over HBM bandwidth, against
-    its causal tensor-core flops at the bf16 peak.  Returns (ms, by)."""
+    its tensor-core flops at the bf16 peak.  Pairs are the causal (query,
+    key) pairs, or all T*T when bidirectional; a bias adds its (H, T, T)
+    float32 read (and K4 its dbias write), a key mask its (B, T) float32
+    read.  Returns (ms, by)."""
     elem = B * T * H * hd * 2             # one bf16 (B, T, H, hd) tensor
     vec = B * H * T * 4                   # one float32 lse / delta row set
-    pairs = B * H * T * (T + 1) // 2      # causal (query, key) pairs
+    pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
+    extra = (H * T * T * 4 if bias else 0) + (B * T * 4 if mask else 0)
     nbytes, flops = {
         "flash_fwd": (4 * elem + vec, 4 * hd * pairs),
         "flash_bwd_dq": (5 * elem + 2 * vec, 6 * hd * pairs),
-        "flash_bwd_dkv": (6 * elem + 2 * vec, 8 * hd * pairs)}[kind]
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        "flash_bwd_dkv": (6 * elem + 2 * vec, 8 * hd * pairs),
+        # q, k, v, dO, lse, delta in; dbias out: s and dP, 4*hd per pair
+        "flash_bwd_dbias": (4 * elem + 2 * vec + H * T * T * 4,
+                            4 * hd * pairs)}[kind]
+    t_bytes = (nbytes + extra) / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_OPS[torch.bfloat16] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -1180,6 +1373,285 @@ def phase_lstm_timing(seed):
     return rows
 
 
+def t5_params(seed, cfg):
+    """A flax-shaped params tree for TransformerSeq2Seq(**cfg) (T5 layout:
+    relative-bias tables, RMSNorm scales, relu MLP, tied head): dense
+    kernels, embeddings and bias tables normal(0, 0.02) from numpy, biases
+    0, norm scales 1."""
+    rng = np.random.default_rng(seed)
+    D, V, F, H = cfg["d_model"], cfg["vocab_size"], cfg["d_ff"], cfg["n_heads"]
+
+    def normal(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * 0.02
+
+    def dense(i, o):
+        return {"kernel": normal(i, o), "bias": np.zeros(o, np.float32)}
+
+    def norm():
+        return {"scale": np.ones(D, np.float32)}
+
+    def mlp():
+        return {"fc_in": dense(D, F), "fc_out": dense(F, D)}
+
+    tree = {"word_embed": normal(V, D), "enc_ln": norm(), "dec_ln": norm(),
+            "enc_rel_bias": normal(cfg["rel_buckets"], H),
+            "dec_rel_bias": normal(cfg["rel_buckets"], H)}
+    for i in range(cfg["enc_layers"]):
+        tree[f"enc_block_{i}"] = {
+            "ln1": norm(), "ln2": norm(), "mlp": mlp(),
+            "attn": {"qkv": dense(D, 3 * D), "out": dense(D, D)}}
+    for i in range(cfg["dec_layers"]):
+        tree[f"dec_block_{i}"] = {
+            "ln1": norm(), "ln2": norm(), "ln3": norm(), "mlp": mlp(),
+            "self_attn": {"qkv": dense(D, 3 * D), "out": dense(D, D)},
+            "cross": {"q": dense(D, D), "kv": dense(D, 2 * D),
+                      "out": dense(D, D)}}
+    return tree
+
+
+def t5_batches(rng, n_rows, tr):
+    """(src, tgt_in, tgt_out) for n_rows random pairs, collated as T5 is:
+    pad 0, eos 1, the decoder starting from pad; source lengths drawn from
+    [src_min, src], targets of tgt tokens + eos."""
+    from neuralnetworklibrary_tpu_torch.nn.seq2seq import seq2seq_collate
+
+    V = T5["vocab_size"]
+    pairs = [(rng.integers(2, V, int(rng.integers(tr["src_min"],
+                                                  tr["src"] + 1))),
+              rng.integers(2, V, tr["tgt"])) for _ in range(n_rows)]
+    return seq2seq_collate(pairs, pad=0, bos=0, eos=1, max_src=tr["src"],
+                           max_tgt=tr["tgt"])
+
+
+def phase_t5(seed, profile=False):
+    import tempfile
+    import types
+
+    from neuralnetworklibrary_tpu_torch.data.loader import (
+        ArrayDataset,
+        DataLoader,
+    )
+    from neuralnetworklibrary_tpu_torch.learner import Learner
+    from neuralnetworklibrary_tpu_torch.nn.seq2seq import (
+        Seq2SeqCrossEntropyLoss,
+        TransformerSeq2Seq,
+        seq2seq_generate,
+    )
+    from neuralnetworklibrary_tpu_torch.nn.transformer import MLP
+    from neuralnetworklibrary_tpu_torch.ops import flash_attention as fa
+    from neuralnetworklibrary_tpu_torch.utils.jax_params import (
+        load_jax_params,
+    )
+
+    tr = T5_TRAFFIC
+    t0 = time.perf_counter()
+    model = TransformerSeq2Seq(**T5, flash_attention=True)
+    load_jax_params(model, t5_params(seed, T5))
+    setup_s = time.perf_counter() - t0
+    L = T5["enc_layers"] + T5["dec_layers"]
+    rng = np.random.default_rng(seed + 10)
+    loss_fn = Seq2SeqCrossEntropyLoss(0)
+
+    # (a) f32, B 2: loss and every gradient, flash path against einsum path.
+    # The MLPs run gelu for this check: at relu's kink the two paths'
+    # float32 round-off sends a pre-activation within ~1e-7 of 0 to the
+    # other branch now and then, which moves that unit's whole gradient term
+    # (3% of its weight's largest entry in a first run); gelu is smooth
+    # there, and every attention shape stays T5-base's.
+    mlps = [m for m in model.modules() if isinstance(m, MLP)]
+    src, tin, tout = (torch.from_numpy(a).long().cuda()
+                      for a in t5_batches(rng, 2, tr))
+    res = []
+    for flash in (True, False):
+        model.flash_attention = flash
+        model.zero_grad(set_to_none=True)
+        for m in mlps:
+            m.act = "gelu"
+        loss = loss_fn(model(src, tin), tout)
+        loss.backward()
+        res.append((float(loss.detach()), {n: p.grad.clone()
+                                           for n, p in model.named_parameters()}))
+    for m in mlps:
+        m.act = T5["mlp_act"]
+    model.flash_attention = True
+    model.zero_grad(set_to_none=True)
+    loss_err = abs(res[0][0] - res[1][0]) / abs(res[1][0])
+    g_err = {n: float((res[0][1][n] - g).abs().max()
+                      / g.abs().max().clamp(min=1e-30))
+             for n, g in res[1][1].items()}
+    del res
+    worst_g = max(g_err, key=g_err.get)
+    if not loss_err <= T5_LOSS_RTOL:
+        fail(f"T5 f32 flash vs einsum loss: relative err {loss_err}")
+    if not g_err[worst_g] <= T5_GRAD_TOL:
+        fail(f"T5 f32 flash vs einsum gradient {worst_g}: err / max "
+             f"{g_err[worst_g]}")
+
+    # (b) the configuration through the Learner; (c) generation
+    B = tr["B"]
+    train = ArrayDataset(*t5_batches(rng, B, tr))
+    val = ArrayDataset(*t5_batches(rng, B * tr["eval_batches"], tr))
+    data = types.SimpleNamespace(
+        target_type="seq2seq", bs=B, train_dl=DataLoader(train, B, prefetch=0),
+        val_dl=DataLoader(val, B, prefetch=0))
+    batch = data.train_dl.peek()
+    kernels = [getattr(fa, n) for n in FLASH_KERNELS]
+    with tempfile.TemporaryDirectory() as tmp:
+        learner = Learner(tmp, data, model, "Adam2", loss_func=loss_fn,
+                          seed=seed, compute_dtype="bfloat16")
+        learner.init_optimizer(wd=0.0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kernels:
+            fn.launches = 0
+        losses, step_s = [], []
+        for _ in range(tr["steps"]):
+            t0 = time.perf_counter()
+            losses.append(learner.train1minibatch(batch, 1e-4))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        val_loss = learner.evaluate("val")[0]
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        peak = torch.cuda.max_memory_allocated()
+        for fn in kernels:
+            fn.launches = 0
+        gen_src = torch.from_numpy(batch.xs[0][:2]).cuda()
+        toks = seq2seq_generate(model, gen_src, tr["gen_tokens"], bos=0)
+        torch.cuda.synchronize()
+        gen_launches = {fn.__name__: fn.launches for fn in kernels}
+        if profile:
+            profile_step(lambda: learner.train1minibatch(batch, 1e-4),
+                         "t5_profile")
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"T5 train losses not finite and falling: {losses}")
+    if not np.isfinite(val_loss):
+        fail(f"T5 evaluate gave {val_loss}")
+    n_eval = len(data.val_dl)
+    steps = tr["steps"]
+    want = {"flash_fwd": L * (steps + n_eval), "flash_bwd_dq": L * steps,
+            "flash_bwd_dkv": L * steps, "flash_bwd_dbias": L * steps}
+    if launches != want:
+        fail(f"T5 flash kernel launches {launches} != {want}")
+    want_gen = {n: 0 for n in FLASH_KERNELS}
+    want_gen["flash_fwd"] = T5["enc_layers"]
+    if gen_launches != want_gen:
+        fail(f"seq2seq_generate launched {gen_launches}, not {want_gen}")
+    if (tuple(toks.shape) != (2, tr["gen_tokens"])
+            or not bool(((toks >= 0) & (toks < T5["vocab_size"])).all())):
+        fail(f"seq2seq_generate gave {toks}")
+    steady = statistics.median(step_s[1:])
+    tokens = int(batch.xs[0].size + batch.xs[1].size)
+    emit({"phase": "t5", "model": "t5-base v1.0 (random weights)",
+          "setup_s": setup_s,
+          "params": sum(p.numel() for p in model.parameters()),
+          "f32_flash_vs_einsum_loss_rel_err": loss_err,
+          "f32_flash_vs_einsum_grad_err_over_max": g_err[worst_g],
+          "f32_worst_grad": worst_g,
+          "f32_rel_bias_grad_err_over_max": {
+              n: g_err[n] for n in ("enc_rel_bias", "dec_rel_bias")},
+          "f32_tol": f"loss {T5_LOSS_RTOL} relative, grads {T5_GRAD_TOL} x "
+                     f"max|grad| per tensor",
+          "f32_check_mlp_act": "gelu (relu's kink flips on round-off)",
+          "dtype": "bfloat16 (autocast)", "B": B, "src_len": tr["src"],
+          "src_real_len": [tr["src_min"], tr["src"]],
+          "tgt_len": tr["tgt"] + 1, "optimizer": "Adam2", "lr": 1e-4,
+          "wd": 0.0, "drop": T5["drop"], "steps": steps, "losses": losses,
+          "val_loss": val_loss, "eval_batches": n_eval, "eval_s": eval_s,
+          "first_step_ms": step_s[0] * 1e3,
+          "ms_per_step_median_2_to_10": steady * 1e3,
+          "src_plus_tgt_tokens_per_s": tokens / steady,
+          "peak_memory_GB": peak / 1e9, "kernel_launches": launches,
+          "generated": toks.tolist(), "generate_kernel_launches":
+          gen_launches})
+    return {n: launches[n] + gen_launches[n] for n in FLASH_KERNELS}
+
+
+def phase_t5_timing(seed):
+    """K1-K4 at the T5 encoder's shape (bf16 B 16, H 12, T 512, hd 64,
+    bidirectional, key mask of lengths 384-512, bias, dropout 0.1)."""
+    import torch.nn.functional as F
+
+    from neuralnetworklibrary_tpu_torch.ops.flash_attention import (
+        flash_bwd_dbias,
+        flash_bwd_dkv,
+        flash_bwd_dq,
+        flash_fwd,
+        reference_flash_attention,
+    )
+
+    B, T, H, hd, rate = 16, 512, 12, 64, 0.1
+    rng = np.random.default_rng(seed + 11)
+    q, k, v, do = flash_case(rng, B, T, H, hd, torch.bfloat16)
+    bias = torch.from_numpy(rng.standard_normal((H, T, T), dtype=np.float32)
+                            * 0.5).cuda()
+    lengths = torch.from_numpy(rng.integers(384, 513, B))
+    mask = (torch.arange(T)[None, :] < lengths[:, None]).cuda()
+    kvm = additive_mask(mask)
+    dseed = int(rng.integers(-2 ** 31, 2 ** 31))
+    scale = 1.0 / hd ** 0.5
+    kw = dict(causal=False, bias=bias, kvm=kvm)
+    timer = Timer()
+    o, lse = flash_fwd(q, k, v, scale, 0, rate, dseed, **kw)
+    delta = ((do.float() * o.float()).sum(-1).transpose(1, 2)
+             .reshape(B * H, T).contiguous())
+    args = (q, k, v, do, lse, delta, scale, 0, rate, dseed)
+    ms = {"flash_fwd": timer.ms(lambda: flash_fwd(
+              q, k, v, scale, 0, rate, dseed, **kw)),
+          "flash_bwd_dq": timer.ms(lambda: flash_bwd_dq(*args, **kw)),
+          "flash_bwd_dkv": timer.ms(lambda: flash_bwd_dkv(*args, **kw)),
+          "flash_bwd_dbias": timer.ms(lambda: flash_bwd_dbias(*args, **kw))}
+
+    def fwd_bwd_ms(fn):
+        """Forward alone, and the backward alone (dq dk dv dbias together)
+        on a retained graph."""
+        qg, kg, vg, bg = (t.detach().requires_grad_()
+                          for t in (q, k, v, bias))
+        fwd = timer.ms(lambda: fn(qg, kg, vg, bg), reps=10)
+        out = fn(qg, kg, vg, bg)
+        bwd = timer.ms(lambda: torch.autograd.grad(
+            out, (qg, kg, vg, bg), do, retain_graph=True), reps=10)
+        return fwd, bwd
+
+    plain_fwd, plain_bwd = fwd_bwd_ms(
+        lambda a, b, c, bb: reference_flash_attention(
+            a, b, c, scale, causal=False, dropout=rate, dropout_seed=dseed,
+            bias=bb, kv_mask=mask))
+    # yardstick only, never called by the port: SDPA with the bias and the
+    # key mask as one float attn_mask that requires grad (its own dropout)
+    lib_fwd, lib_bwd = fwd_bwd_ms(
+        lambda a, b, c, bb: F.scaled_dot_product_attention(
+            a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2),
+            attn_mask=(bb[None] + kvm[:, None, None, :]).to(a.dtype),
+            dropout_p=rate).transpose(1, 2))
+    rows = {}
+    for name in ms:
+        bound_ms, bound_by = flash_bound(B, T, H, hd, name, causal=False,
+                                         bias=True, mask=True)
+        fwd = name == "flash_fwd"
+        rows[name] = {
+            "ms": ms[name], "plain_ms": plain_fwd if fwd else plain_bwd,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_fwd if fwd else lib_bwd}
+        emit({"phase": "timing", "kernel": name, "shape": "t5_encoder",
+              "B": B, "T": T, "H": H, "hd": hd, "dtype": "bfloat16",
+              "causal": False, "bias": True, "kv_mask": "lengths 384-512",
+              "dropout": rate, **rows[name],
+              "plain": "reference_flash_attention in bf16"
+                       + ("" if fwd else
+                          ": its backward, dq dk dv dbias together"),
+              "library": "F.scaled_dot_product_attention with the bias + "
+                         "key mask as a float attn_mask requiring grad, "
+                         + ("forward" if fwd else
+                            "backward, dq dk dv dbias together")
+                         + " (yardstick only)",
+              "share_of_bound": bound_ms / ms[name]})
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1205,9 +1677,12 @@ def main():
     flash_launches = phase_train(args.seed, args.profile)
     lstm_err = phase_lstm_kernel(args.seed)
     lstm_launches = phase_lm(args.seed, args.profile)
+    t5_err = phase_flash_options(args.seed)
+    t5_launches = phase_t5(args.seed, args.profile)
     t = phase_timing(args.seed)[0]     # the serving path's own shape
     flash_t = phase_flash_timing(args.seed)
     lstm_t = phase_lstm_timing(args.seed)
+    t5_t = phase_t5_timing(args.seed)
     kernels = [{
         "name": "paged_attention", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES, "launches": launches,
@@ -1215,13 +1690,25 @@ def main():
         "tol": TOL[torch.bfloat16], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"]}]
-    for name, row in flash_t.items():
+    # K1-K3: the numbers at the GPT-2 train shape, and at the T5 encoder's
+    # beside them; launches over both training paths.  K4 runs on the T5
+    # path alone.
+    for name in FLASH_KERNELS:
+        by_path = {"train": flash_launches.get(name, 0),
+                   "t5": t5_launches[name]}
+        dbias = name == "flash_bwd_dbias"
+        row = t5_t[name] if dbias else flash_t[name]
+        tol = (DBIAS_TOL if dbias else FLASH_TOL)[torch.bfloat16]
         kernels.append({
             "name": name, "route": "cuda", "source": FLASH_SOURCE,
             "replaces": FLASH_REPLACES[name],
-            "launches": flash_launches[name],
-            "max_abs_err": flash_err[name],
-            "tol": "atol %g + rtol %g" % FLASH_TOL[torch.bfloat16], **row})
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": (t5_err[name] if dbias else
+                            max(flash_err[name], t5_err[name])),
+            "tol": ("atol %g x max|ref| + rtol %g + bf16 delta slack"
+                    if dbias else "atol %g + rtol %g") % tol,
+            "shape": "t5_encoder" if dbias else "gpt2_train", **row,
+            **({} if dbias else {"t5_encoder": t5_t[name]})})
     for name, row in lstm_t.items():
         kind = name.split("_")[1]
         kernels.append({

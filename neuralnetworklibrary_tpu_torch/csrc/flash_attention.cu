@@ -1,28 +1,41 @@
-// Causal flash attention, forward and backward, for Hopper (sm_90a), bound
-// to Python with ctypes.
+// Flash attention, forward and backward, for Hopper (sm_90a), bound to
+// Python with ctypes.
 //
-// Replaces three TPU kernels of neuralnetworklibrary_tpu/ops/flash_attention.py
-// (Pallas):
-//   flash_fwd_kernel     <- _fwd_kernel      (K1): o and the row logsumexp
-//   flash_bwd_dq_kernel  <- _bwd_dq_kernel   (K2): dq by a loop over key tiles
-//   flash_bwd_dkv_kernel <- _bwd_dkv_kernel  (K3): dk, dv by a loop over
-//                                                   query tiles
+// Replaces the four TPU kernels of
+// neuralnetworklibrary_tpu/ops/flash_attention.py (Pallas):
+//   flash_fwd_kernel       <- _fwd_kernel       (K1): o and the row logsumexp
+//   flash_bwd_dq_kernel    <- _bwd_dq_kernel    (K2): dq by a loop over key
+//                                                     tiles
+//   flash_bwd_dkv_kernel   <- _bwd_dkv_kernel   (K3): dk, dv by a loop over
+//                                                     query tiles
+//   flash_bwd_dbias_kernel <- _bwd_dbias_kernel (K4): dbias = sum over the
+//                                                     batch of dS
 // The (T, T) score matrix is never written: each block holds one 64-row
 // tile of its own side and streams 64-row tiles of the other side through
 // shared memory, with the online softmax (m, l) in the forward and
 // p = exp(s - lse) recomputed from the saved logsumexp in the backward.
 // delta = rowsum(dO * O) is computed outside, as the JAX package does.
 //
+// Options, as in the Pallas kernels: causal or bidirectional (causal = 0:
+// every key tile of every row); a causal window; a batch-shared float32
+// logit bias (H, T, T) added to the scaled score (T5's relative
+// positions); a key mask entered ADDITIVELY as a (B, T) float32 row of
+// 0 / -1e30, so a row whose keys are all masked attends uniformly over the
+// keys its position sees, as the JAX package's rule is; in-kernel dropout.
+//
 // Layout: q, k, v, o, do, dq, dk, dv are (B, T, H, hd) row-major, so a row
 // of one head is hd contiguous elements and rows are H*hd apart; lse and
-// delta are (B*H, T) float32.  The flat index bh = b*H + h is the JAX
-// kernels' program_id(0), and the dropout hash takes it as its batch index.
+// delta are (B*H, T) float32; bias and dbias (H, T, T) float32; the key
+// mask (B, T) float32.  The flat index bh = b*H + h is the JAX kernels'
+// program_id(0), and the dropout hash takes it as its batch index.
 //
 // What bounds it: at the training shape (T 1024, hd 64) the causal work is
 // about 4*T*T/2*hd flops per head against (4 or 8)*T*hd elements moved, far
 // above the card's ~300 flops per byte, so the tensor cores' rate bounds it.
 // This first version does not reach them: it multiplies in float32 on the
 // CUDA cores from shared memory, so shared-memory loads bound it instead.
+// K4 does 4*hd flops per (query, key) pair per batch row against the bias
+// read and the dbias write, (H, T, T) float32 each: tensor-core bound too.
 //
 // Design (simple first version):
 // - one block of 256 threads per (tile of 64 rows, bh).  Thread (ty, tx) of
@@ -35,6 +48,17 @@
 //   window starts (K1, K2) or ends (K3) the loop at its band, as first_j and
 //   n_q do in the Pallas kernels; rows at or past T are masked, so T needs
 //   no padding;
+// - K4 runs one block per (key tile, query tile, head) and loops over the
+//   batch inside the block, summing one 64 x 64 float32 tile in registers
+//   and writing it once: no atomics (the result is deterministic) and no
+//   zeroing pass.  A tile the causal band skips is written as 0.  The TPU
+//   kernel instead accumulates across a sequential batch grid axis, which
+//   blocks that run in no order cannot do;
+// - a row whose every key is masked saves lse = -1e30 (m + log l rounds to
+//   m in float32), so the backward cannot take p = exp(s - lse) there: it
+//   gives such a row its forward's uniform p = 1/n over its n attended
+//   keys, and dS = 0 on masked keys, which is what the gradient of the
+//   plain version (masked scores replaced, not offset) is;
 // - dropout regenerates the keep mask from the same murmur3 hash as the
 //   Pallas `_drop_keep`, in uint32 arithmetic (the TPU's int32 wraps the
 //   same way, and its shift_right_logical is a logical shift).  The forward
@@ -43,7 +67,7 @@
 //
 // Later work: bf16 tiles into wgmma (or mma.sync) with TMA staging, which
 // is what the tensor-core bound asks for; native GQA (read Hkv heads);
-// causal=False, kv_mask, q_start, sink and bias; the dbias kernel (K4).
+// q_start and sink.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -144,8 +168,66 @@ __device__ __forceinline__ void load_rows(float* __restrict__ dst,
     dst[r] = row0 + r < Tn ? src[row0 + r] : 0.f;
 }
 
-__device__ __forceinline__ bool attends(int qp, int kp, int Tn, int window) {
-  return kp <= qp && qp < Tn && (window <= 0 || qp - kp < window);
+// Whether query qp sees key kp by position alone (the key mask is added to
+// the score instead).  window > 0 only with causal.
+__device__ __forceinline__ bool attends(int qp, int kp, int Tn, int causal,
+                                        int window) {
+  if (qp >= Tn || kp >= Tn) return false;
+  return !causal || (kp <= qp && (window <= 0 || qp - kp < window));
+}
+
+// The number of keys query qp sees by position (n of a fully masked row).
+__device__ __forceinline__ float n_attended(int qp, int Tn, int causal,
+                                            int window) {
+  if (!causal) return static_cast<float>(Tn);
+  return static_cast<float>(window > 0 ? min(qp + 1, window) : qp + 1);
+}
+
+// A row whose every key is masked: its saved lse is -1e30 (see above).
+__device__ __forceinline__ bool fully_masked(float lse) {
+  return lse <= -1e29f;
+}
+
+// bias[h][qp][kp] + kvm[b][kp] for an attended pair (either may be absent).
+__device__ __forceinline__ float logit_add(const float* __restrict__ bias_h,
+                                           const float* __restrict__ kvm_b,
+                                           int qp, int kp, int Tn) {
+  float a = 0.f;
+  if (bias_h) a += bias_h[(size_t)qp * Tn + kp];
+  if (kvm_b) a += kvm_b[kp];
+  return a;
+}
+
+// The key tiles [*j_begin, *j_end] that query tile q0 visits (K1, K2, K4).
+__device__ __forceinline__ void key_tiles(int q0, int Tn, int causal,
+                                          int window, int* j_begin,
+                                          int* j_end) {
+  const int n_tiles = (Tn + kTile - 1) / kTile;
+  *j_begin = 0;
+  *j_end = n_tiles - 1;
+  if (causal) {
+    *j_end = min(Tn - 1, q0 + kTile - 1) / kTile;
+    if (window > 0) *j_begin = max(0, q0 - window + 1) / kTile;
+  }
+}
+
+// p and dS of one attended-or-not pair in the backward (K2, K3, K4), from
+// the scaled score s (bias and key mask already added), the row's lse and
+// delta, and the dropout-scaled dP g.  kv_ok is false on a masked key.
+struct PairGrad {
+  float p;   // the forward's softmax probability (undropped)
+  float ds;  // P * (dP - delta), zero on a masked key
+};
+template <bool OPT>
+__device__ __forceinline__ PairGrad pair_grad(bool keep, bool kv_ok, float s,
+                                              float lse, float inv_n, float g,
+                                              float dl) {
+  PairGrad r{0.f, 0.f};
+  if (keep) {
+    r.p = OPT && fully_masked(lse) ? inv_n : expf(s - lse);
+    if (kv_ok) r.ds = r.p * (g - dl);
+  }
+  return r;
 }
 
 template <int HD>
@@ -160,14 +242,30 @@ template <int HD>
 constexpr size_t dkv_smem() {
   return sizeof(float) * (4 * kTile * (HD + 1) + 2 * kTile * kPs + 2 * kTile);
 }
+template <int HD>
+constexpr size_t dbias_smem() {
+  return sizeof(float) * (4 * kTile * (HD + 1) + 2 * kTile);
+}
+
+// The options every kernel takes, as one argument.  K1-K3 are compiled
+// twice: OPT = false when there is neither a bias nor a key mask, so the
+// plain causal path (GPT-2 training) keeps its registers and arithmetic.
+struct Opts {
+  const float* bias;  // (H, T, T) or null
+  const float* kvm;   // (B, T) additive key mask or null
+  float sm_scale;
+  int causal;
+  int window;
+  float rate;  // dropout rate, 0 = none
+  uint32_t seed;
+};
 
 // ---------------------------------------------------------------- K1
 
-template <typename T, int HD>
+template <typename T, int HD, bool OPT>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, float* __restrict__ lse, int Tn, int H,
-    float sm_scale, int window, float rate, uint32_t seed) {
+    T* __restrict__ o, float* __restrict__ lse, int Tn, int H, Opts op) {
   constexpr int S = HD + 1;
   constexpr int NB = HD / 16;
   extern __shared__ float smem[];
@@ -186,9 +284,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const size_t rs = (size_t)H * HD;
   const size_t base = (size_t)b * Tn * rs + (size_t)h * HD;
   const int q0 = i * kTile;
-  const float inv_keep = rate > 0.f ? 1.f / (1.f - rate) : 1.f;
+  const float inv_keep = op.rate > 0.f ? 1.f / (1.f - op.rate) : 1.f;
+  const float* bias_h =
+      OPT && op.bias ? op.bias + (size_t)h * Tn * Tn : nullptr;
+  const float* kvm_b = OPT && op.kvm ? op.kvm + (size_t)b * Tn : nullptr;
 
-  load_tile<T, HD>(q_s, q + base, q0, Tn, rs, sm_scale);
+  load_tile<T, HD>(q_s, q + base, q0, Tn, rs, op.sm_scale);
   float acc[4][NB];
   float m[4], l[4];
 #pragma unroll
@@ -198,8 +299,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 #pragma unroll
     for (int j = 0; j < NB; ++j) acc[r][j] = 0.f;
   }
-  const int j_end = min(Tn - 1, q0 + kTile - 1) / kTile;
-  const int j_begin = window > 0 ? max(0, q0 - window + 1) / kTile : 0;
+  int j_begin, j_end;
+  key_tiles(q0, Tn, op.causal, op.window, &j_begin, &j_end);
   for (int j = j_begin; j <= j_end; ++j) {
     const int k0 = j * kTile;
     __syncthreads();  // the last tile's products are done with k_s, v_s, p_s
@@ -215,8 +316,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       float mx = kNegInf;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        keep[c] = attends(qp, k0 + tx + 16 * c, Tn, window);
-        if (keep[c]) mx = fmaxf(mx, s[r][c]);
+        const int kp = k0 + tx + 16 * c;
+        keep[c] = attends(qp, kp, Tn, op.causal, op.window);
+        if (keep[c]) {
+          s[r][c] += logit_add(bias_h, kvm_b, qp, kp, Tn);
+          mx = fmaxf(mx, s[r][c]);
+        }
       }
       const float m_new = fmaxf(m[r], row_max(mx));
       const float alpha = expf(m[r] - m_new);
@@ -226,8 +331,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
         const int kp = k0 + tx + 16 * c;
         float p = keep[c] ? expf(s[r][c] - m_new) : 0.f;
         psum += p;
-        if (rate > 0.f)
-          p *= drop_keep(seed, bh, qp, kp, rate) ? inv_keep : 0.f;
+        if (op.rate > 0.f)
+          p *= drop_keep(op.seed, bh, qp, kp, op.rate) ? inv_keep : 0.f;
         p_s[(ty * 4 + r) * kPs + tx + 16 * c] = p;
       }
       l[r] = alpha * l[r] + row_sum(psum);
@@ -253,12 +358,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 
 // ---------------------------------------------------------------- K2
 
-template <typename T, int HD>
+template <typename T, int HD, bool OPT>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dq, int Tn, int H,
-    float sm_scale, int window, float rate, uint32_t seed) {
+    Opts op) {
   constexpr int S = HD + 1;
   constexpr int NB = HD / 16;
   extern __shared__ float smem[];
@@ -280,15 +385,18 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   const size_t rs = (size_t)H * HD;
   const size_t base = (size_t)b * Tn * rs + (size_t)h * HD;
   const int q0 = i * kTile;
-  const float inv_keep = rate > 0.f ? 1.f / (1.f - rate) : 1.f;
+  const float inv_keep = op.rate > 0.f ? 1.f / (1.f - op.rate) : 1.f;
+  const float* bias_h =
+      OPT && op.bias ? op.bias + (size_t)h * Tn * Tn : nullptr;
+  const float* kvm_b = OPT && op.kvm ? op.kvm + (size_t)b * Tn : nullptr;
 
   load_tile<T, HD>(q_s, q + base, q0, Tn, rs);
   load_tile<T, HD>(do_s, dout + base, q0, Tn, rs);
   load_rows(lse_s, lse + (size_t)bh * Tn, q0, Tn);
   load_rows(dl_s, delta + (size_t)bh * Tn, q0, Tn);
   float acc[4][NB] = {};
-  const int j_end = min(Tn - 1, q0 + kTile - 1) / kTile;
-  const int j_begin = window > 0 ? max(0, q0 - window + 1) / kTile : 0;
+  int j_begin, j_end;
+  key_tiles(q0, Tn, op.causal, op.window, &j_begin, &j_end);
   for (int j = j_begin; j <= j_end; ++j) {
     const int k0 = j * kTile;
     __syncthreads();
@@ -303,16 +411,22 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     for (int r = 0; r < 4; ++r) {
       const int row = ty * 4 + r;
       const int qp = q0 + row;
+      const float inv_n =
+          OPT ? 1.f / n_attended(qp, Tn, op.causal, op.window) : 0.f;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int kp = k0 + tx + 16 * c;
-        const float p = attends(qp, kp, Tn, window)
-                            ? expf(s[r][c] * sm_scale - lse_s[row])
-                            : 0.f;
+        const bool keep = attends(qp, kp, Tn, op.causal, op.window);
+        const float sc = keep ? s[r][c] * op.sm_scale
+                                    + logit_add(bias_h, kvm_b, qp, kp, Tn)
+                              : 0.f;
+        const bool kv_ok = !kvm_b || !keep || kvm_b[kp] == 0.f;
         float g = dp[r][c];
-        if (rate > 0.f)
-          g *= drop_keep(seed, bh, qp, kp, rate) ? inv_keep : 0.f;
-        ds_s[row * kPs + tx + 16 * c] = p * (g - dl_s[row]);
+        if (op.rate > 0.f)
+          g *= drop_keep(op.seed, bh, qp, kp, op.rate) ? inv_keep : 0.f;
+        ds_s[row * kPs + tx + 16 * c] =
+            pair_grad<OPT>(keep, kv_ok, sc, lse_s[row], inv_n, g,
+                           dl_s[row]).ds;
       }
     }
     __syncthreads();
@@ -325,18 +439,18 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     T* row = dq + base + (size_t)qp * rs;
 #pragma unroll
     for (int d = 0; d < NB; ++d)
-      row[tx + 16 * d] = from_f32<T>(acc[r][d] * sm_scale);
+      row[tx + 16 * d] = from_f32<T>(acc[r][d] * op.sm_scale);
   }
 }
 
 // ---------------------------------------------------------------- K3
 
-template <typename T, int HD>
+template <typename T, int HD, bool OPT>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-    int Tn, int H, float sm_scale, int window, float rate, uint32_t seed) {
+    int Tn, int H, Opts op) {
   constexpr int S = HD + 1;
   constexpr int NB = HD / 16;
   extern __shared__ float smem[];
@@ -359,16 +473,22 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   const size_t rs = (size_t)H * HD;
   const size_t base = (size_t)b * Tn * rs + (size_t)h * HD;
   const int k0 = j * kTile;
-  const float inv_keep = rate > 0.f ? 1.f / (1.f - rate) : 1.f;
+  const float inv_keep = op.rate > 0.f ? 1.f / (1.f - op.rate) : 1.f;
+  const float* bias_h =
+      OPT && op.bias ? op.bias + (size_t)h * Tn * Tn : nullptr;
+  const float* kvm_b = OPT && op.kvm ? op.kvm + (size_t)b * Tn : nullptr;
 
   load_tile<T, HD>(k_s, k + base, k0, Tn, rs);
   load_tile<T, HD>(v_s, v + base, k0, Tn, rs);
   float dk_acc[4][NB] = {};
   float dv_acc[4][NB] = {};
-  int i_end = n_tiles;  // exclusive
-  if (window > 0)
-    i_end = min(i_end, (k0 + kTile - 1 + window - 1) / kTile + 1);
-  for (int i = j; i < i_end; ++i) {
+  int i_begin = 0, i_end = n_tiles;  // exclusive
+  if (op.causal) {
+    i_begin = j;
+    if (op.window > 0)
+      i_end = min(i_end, (k0 + kTile - 1 + op.window - 1) / kTile + 1);
+  }
+  for (int i = i_begin; i < i_end; ++i) {
     const int q0 = i * kTile;
     __syncthreads();
     load_tile<T, HD>(q_s, q + base, q0, Tn, rs);
@@ -384,21 +504,23 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     for (int r = 0; r < 4; ++r) {
       const int row = ty * 4 + r;
       const int qp = q0 + row;
+      const float inv_n =
+          OPT ? 1.f / n_attended(qp, Tn, op.causal, op.window) : 0.f;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int kp = k0 + tx + 16 * c;
-        const float p = attends(qp, kp, Tn, window)
-                            ? expf(s[r][c] * sm_scale - lse_s[row])
-                            : 0.f;
-        float pd = p;
-        float g = dp[r][c];
-        if (rate > 0.f) {
-          const float dm = drop_keep(seed, bh, qp, kp, rate) ? inv_keep : 0.f;
-          pd *= dm;
-          g *= dm;
-        }
-        p_s[row * kPs + tx + 16 * c] = pd;  // dV sees the dropped P
-        ds_s[row * kPs + tx + 16 * c] = p * (g - dl_s[row]);
+        const bool keep = attends(qp, kp, Tn, op.causal, op.window);
+        const float sc = keep ? s[r][c] * op.sm_scale
+                                    + logit_add(bias_h, kvm_b, qp, kp, Tn)
+                              : 0.f;
+        const bool kv_ok = !kvm_b || !keep || kvm_b[kp] == 0.f;
+        float dm = 1.f;
+        if (op.rate > 0.f)
+          dm = drop_keep(op.seed, bh, qp, kp, op.rate) ? inv_keep : 0.f;
+        const PairGrad pg = pair_grad<OPT>(keep, kv_ok, sc, lse_s[row],
+                                           inv_n, dp[r][c] * dm, dl_s[row]);
+        p_s[row * kPs + tx + 16 * c] = pg.p * dm;  // dV sees the dropped P
+        ds_s[row * kPs + tx + 16 * c] = pg.ds;
       }
     }
     __syncthreads();
@@ -414,8 +536,107 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     T* vrow = dv + base + (size_t)kp * rs;
 #pragma unroll
     for (int d = 0; d < NB; ++d) {
-      krow[tx + 16 * d] = from_f32<T>(dk_acc[r][d] * sm_scale);
+      krow[tx + 16 * d] = from_f32<T>(dk_acc[r][d] * op.sm_scale);
       vrow[tx + 16 * d] = from_f32<T>(dv_acc[r][d]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- K4
+
+// dbias[h, q tile, k tile] = sum_b dS_bh over that tile.  Block (x, y, z) =
+// (key tile, query tile, head); thread (ty, tx) owns the same 4 x 4 pairs
+// as in K2.  Per batch row it stages q, dO, k, v and the rows' lse, delta.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dbias_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dbias, int B, int Tn,
+    int H, Opts op) {
+  constexpr int S = HD + 1;
+  extern __shared__ float smem[];
+  float* q_s = smem;
+  float* do_s = q_s + kTile * S;
+  float* k_s = do_s + kTile * S;
+  float* v_s = k_s + kTile * S;
+  float* lse_s = v_s + kTile * S;
+  float* dl_s = lse_s + kTile;
+
+  const int k0 = blockIdx.x * kTile;
+  const int q0 = blockIdx.y * kTile;
+  const int h = blockIdx.z;
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  const size_t rs = (size_t)H * HD;
+  const float inv_keep = op.rate > 0.f ? 1.f / (1.f - op.rate) : 1.f;
+  const float* bias_h = op.bias + (size_t)h * Tn * Tn;
+
+  // the tile is live when the causal band reaches it (K1's key_tiles)
+  int j_begin, j_end;
+  key_tiles(q0, Tn, op.causal, op.window, &j_begin, &j_end);
+  const bool live = (int)blockIdx.x >= j_begin && (int)blockIdx.x <= j_end;
+
+  float acc[4][4] = {};
+  float bias_r[4][4];
+  float inv_n[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int qp = q0 + ty * 4 + r;
+    inv_n[r] = 1.f / n_attended(qp, Tn, op.causal, op.window);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int kp = k0 + tx + 16 * c;
+      bias_r[r][c] = attends(qp, kp, Tn, op.causal, op.window)
+                         ? bias_h[(size_t)qp * Tn + kp]
+                         : 0.f;
+    }
+  }
+  for (int b = 0; live && b < B; ++b) {
+    const int bh = b * H + h;
+    const size_t base = (size_t)b * Tn * rs + (size_t)h * HD;
+    const float* kvm_b = op.kvm ? op.kvm + (size_t)b * Tn : nullptr;
+    __syncthreads();  // the last batch row's products are done
+    load_tile<T, HD>(q_s, q + base, q0, Tn, rs);
+    load_tile<T, HD>(do_s, dout + base, q0, Tn, rs);
+    load_tile<T, HD>(k_s, k + base, k0, Tn, rs);
+    load_tile<T, HD>(v_s, v + base, k0, Tn, rs);
+    load_rows(lse_s, lse + (size_t)bh * Tn, q0, Tn);
+    load_rows(dl_s, delta + (size_t)bh * Tn, q0, Tn);
+    __syncthreads();
+    float s[4][4] = {};
+    float dp[4][4] = {};
+    mma_tile<HD, 4, S, 1, 1, S>(s, q_s, k_s, ty, tx);
+    mma_tile<HD, 4, S, 1, 1, S>(dp, do_s, v_s, ty, tx);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = ty * 4 + r;
+      const int qp = q0 + row;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int kp = k0 + tx + 16 * c;
+        const bool keep = attends(qp, kp, Tn, op.causal, op.window);
+        float sc = s[r][c] * op.sm_scale + bias_r[r][c];
+        bool kv_ok = true;
+        if (kvm_b && keep) {
+          sc += kvm_b[kp];
+          kv_ok = kvm_b[kp] == 0.f;
+        }
+        float g = dp[r][c];
+        if (op.rate > 0.f)
+          g *= drop_keep(op.seed, bh, qp, kp, op.rate) ? inv_keep : 0.f;
+        acc[r][c] += pair_grad<true>(keep, kv_ok, sc, lse_s[row], inv_n[r],
+                                     g, dl_s[row]).ds;
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int qp = q0 + ty * 4 + r;
+    if (qp >= Tn) continue;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int kp = k0 + tx + 16 * c;
+      if (kp < Tn) dbias[((size_t)h * Tn + qp) * Tn + kp] = acc[r][c];
     }
   }
 }
@@ -459,49 +680,71 @@ dim3 grid_of(int B, int Tn, int H) {
 
 template <typename T, int HD>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-        int B, int Tn, int H, float sm_scale, int window, float rate,
-        uint32_t seed, cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<T, HD>;
+        int B, int Tn, int H, Opts op, cudaStream_t stream) {
+  auto kern = op.bias || op.kvm ? flash_fwd_kernel<T, HD, true>
+                                 : flash_fwd_kernel<T, HD, false>;
   const size_t smem = fwd_smem<HD>();
   if (int e = prepare(kern, smem)) return e;
   kern<<<grid_of(B, Tn, H), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      Tn, H, sm_scale, window, rate, seed);
+      Tn, H, op);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int HD>
 int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dq, int B, int Tn,
-           int H, float sm_scale, int window, float rate, uint32_t seed,
-           cudaStream_t stream) {
-  auto kern = flash_bwd_dq_kernel<T, HD>;
+           int H, Opts op, cudaStream_t stream) {
+  auto kern = op.bias || op.kvm ? flash_bwd_dq_kernel<T, HD, true>
+                                 : flash_bwd_dq_kernel<T, HD, false>;
   const size_t smem = dq_smem<HD>();
   if (int e = prepare(kern, smem)) return e;
   kern<<<grid_of(B, Tn, H), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), Tn, H, sm_scale, window, rate, seed);
+      static_cast<T*>(dq), Tn, H, op);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int HD>
 int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
             const void* lse, const void* delta, void* dk, void* dv, int B,
-            int Tn, int H, float sm_scale, int window, float rate,
-            uint32_t seed, cudaStream_t stream) {
-  auto kern = flash_bwd_dkv_kernel<T, HD>;
+            int Tn, int H, Opts op, cudaStream_t stream) {
+  auto kern = op.bias || op.kvm ? flash_bwd_dkv_kernel<T, HD, true>
+                                 : flash_bwd_dkv_kernel<T, HD, false>;
   const size_t smem = dkv_smem<HD>();
   if (int e = prepare(kern, smem)) return e;
   kern<<<grid_of(B, Tn, H), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), Tn, H, sm_scale, window, rate,
-      seed);
+      static_cast<T*>(dk), static_cast<T*>(dv), Tn, H, op);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int HD>
+int bwd_dbias(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, void* dbias, int B, int Tn,
+              int H, Opts op, cudaStream_t stream) {
+  if (op.bias == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = flash_bwd_dbias_kernel<T, HD>;
+  const size_t smem = dbias_smem<HD>();
+  if (int e = prepare(kern, smem)) return e;
+  const int n = (Tn + kTile - 1) / kTile;
+  kern<<<dim3(n, n, H), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dbias), B, Tn, H, op);
+  return static_cast<int>(cudaGetLastError());
+}
+
+Opts opts_of(const void* bias, const void* kvm, float sm_scale, int causal,
+             int window, float rate, int seed) {
+  return Opts{static_cast<const float*>(bias), static_cast<const float*>(kvm),
+              sm_scale, causal, window, rate, static_cast<uint32_t>(seed)};
 }
 
 // Calls F<T, HD>(args...) for dtype code 0 (float32) / 1 (bfloat16) and
@@ -518,36 +761,52 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
 
 extern "C" {
 
-// dtype codes: 0 = float32, 1 = bfloat16; hd 64 or 128.  seed is the int32
-// dropout seed (its bits), rate the dropout rate (0 = none).  Each returns
-// the cudaError_t of its launch (0 on success).
-int nnl_flash_fwd(const void* q, const void* k, const void* v, void* o,
-                  void* lse, int B, int Tn, int H, int hd, float sm_scale,
+// dtype codes: 0 = float32, 1 = bfloat16; hd 64 or 128.  bias is the
+// (H, T, T) float32 logit bias or null, kvm the (B, T) float32 additive key
+// mask (0 or -1e30) or null; causal 0 or 1; window > 0 only when causal.
+// seed is the int32 dropout seed (its bits), rate the dropout rate (0 =
+// none).  Each returns the cudaError_t of its launch (0 on success).
+int nnl_flash_fwd(const void* q, const void* k, const void* v,
+                  const void* bias, const void* kvm, void* o, void* lse,
+                  int B, int Tn, int H, int hd, float sm_scale, int causal,
                   int window, float rate, int seed, int dtype, void* stream) {
-  NNL_FLASH_DISPATCH(fwd, dtype, hd, q, k, v, o, lse, B, Tn, H, sm_scale,
-                     window, rate, static_cast<uint32_t>(seed),
+  const Opts op = opts_of(bias, kvm, sm_scale, causal, window, rate, seed);
+  NNL_FLASH_DISPATCH(fwd, dtype, hd, q, k, v, o, lse, B, Tn, H, op,
                      static_cast<cudaStream_t>(stream));
 }
 
 int nnl_flash_bwd_dq(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
-                     void* dq, int B, int Tn, int H, int hd, float sm_scale,
+                     const void* bias, const void* kvm, void* dq, int B,
+                     int Tn, int H, int hd, float sm_scale, int causal,
                      int window, float rate, int seed, int dtype,
                      void* stream) {
+  const Opts op = opts_of(bias, kvm, sm_scale, causal, window, rate, seed);
   NNL_FLASH_DISPATCH(bwd_dq, dtype, hd, q, k, v, dout, lse, delta, dq, B, Tn,
-                     H, sm_scale, window, rate, static_cast<uint32_t>(seed),
-                     static_cast<cudaStream_t>(stream));
+                     H, op, static_cast<cudaStream_t>(stream));
 }
 
 int nnl_flash_bwd_dkv(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
-                      void* dk, void* dv, int B, int Tn, int H, int hd,
-                      float sm_scale, int window, float rate, int seed,
+                      const void* bias, const void* kvm, void* dk, void* dv,
+                      int B, int Tn, int H, int hd, float sm_scale,
+                      int causal, int window, float rate, int seed,
                       int dtype, void* stream) {
+  const Opts op = opts_of(bias, kvm, sm_scale, causal, window, rate, seed);
   NNL_FLASH_DISPATCH(bwd_dkv, dtype, hd, q, k, v, dout, lse, delta, dk, dv,
-                     B, Tn, H, sm_scale, window, rate,
-                     static_cast<uint32_t>(seed),
-                     static_cast<cudaStream_t>(stream));
+                     B, Tn, H, op, static_cast<cudaStream_t>(stream));
+}
+
+// dbias (H, T, T) float32; bias must be given.
+int nnl_flash_bwd_dbias(const void* q, const void* k, const void* v,
+                        const void* dout, const void* lse, const void* delta,
+                        const void* bias, const void* kvm, void* dbias, int B,
+                        int Tn, int H, int hd, float sm_scale, int causal,
+                        int window, float rate, int seed, int dtype,
+                        void* stream) {
+  const Opts op = opts_of(bias, kvm, sm_scale, causal, window, rate, seed);
+  NNL_FLASH_DISPATCH(bwd_dbias, dtype, hd, q, k, v, dout, lse, delta, dbias,
+                     B, Tn, H, op, static_cast<cudaStream_t>(stream));
 }
 
 // out[s, bh, i, j] = keep(seeds[s], bh, q0 + i, k0 + j) as 0/1 bytes.

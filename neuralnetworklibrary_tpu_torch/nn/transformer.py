@@ -59,21 +59,23 @@ def resolve_device(device) -> torch.device:
 
 
 class CausalSelfAttention(nn.Module):
-    """Multi-head causal self-attention with a fused qkv projection whose
+    """Multi-head self-attention, causal unless ``causal=False`` (an
+    encoder's bidirectional attention), with a fused qkv projection whose
     columns are ``[q (H*hd) | k (Hkv*hd) | v (Hkv*hd)]``.
 
     ``n_kv_heads`` < n_heads is grouped-query attention (query head h reads
     kv head h // (H/Hkv)); ``window`` > 0 lets query t see keys
-    (t - window, t]; ``sinks`` adds a learned per-head logit that joins
-    every softmax row and whose mass is discarded; ``drop`` is the
-    attention-probability dropout of training calls.
+    (t - window, t] (causal only); ``sinks`` adds a learned per-head logit
+    that joins every softmax row and whose mass is discarded; ``drop`` is
+    the attention-probability dropout of training calls.
     """
 
     def __init__(self, d_model: int, n_heads: int, *, n_kv_heads: int = 0,
                  window: int = 0, sinks: bool = False, drop: float = 0.0,
-                 device=None):
+                 causal: bool = True, device=None):
         super().__init__()
         self.drop = drop
+        self.causal = causal
         H, Hkv = n_heads, n_kv_heads or n_heads
         if H % Hkv:
             raise ValueError(f"n_heads {H} must be a multiple of "
@@ -91,11 +93,14 @@ class CausalSelfAttention(nn.Module):
         rep = self.n_heads // self.n_kv_heads
         return t if rep == 1 else t.repeat_interleave(rep, dim=2)
 
-    def _attend(self, q, k, v, mask, drop: float = 0.0):
+    def _attend(self, q, k, v, mask, drop: float = 0.0, bias=None):
         """Masked softmax attention over explicit k/v; mask broadcasts to
-        (B, H, T, S); ``drop`` > 0 drops probabilities (torch RNG)."""
+        (B, H, T, S) and ``bias`` (the logit bias) is added before it;
+        ``drop`` > 0 drops probabilities (torch RNG)."""
         att = torch.einsum("bqhd,bkhd->bhqk", q, self._expand(k)) \
             / math.sqrt(self.head_dim)
+        if bias is not None:
+            att = att + bias
         att = att.masked_fill(~mask, _NEG_INF)
         if self.sink is None:
             att = torch.softmax(att, dim=-1)
@@ -108,7 +113,7 @@ class CausalSelfAttention(nn.Module):
         out = torch.einsum("bhqk,bkhd->bqhd", att, self._expand(v))
         return out.reshape(q.shape[0], q.shape[1], -1)
 
-    def _flash(self, q, k, v, train, generator):
+    def _flash(self, q, k, v, train, generator, kv_mask, att_bias):
         """Full-sequence attention through ``ops.flash_attention`` on the
         kv heads expanded to H (``expand_kv``, transformer.py:592)."""
         rate, seed = 0.0, None
@@ -117,12 +122,18 @@ class CausalSelfAttention(nn.Module):
             seed = int(torch.randint(-(1 << 31), 1 << 31, (),
                                      generator=generator))
         out = flash_attention(q, self._expand(k), self._expand(v),
-                              window=self.window, sink=self.sink,
-                              dropout=rate, dropout_seed=seed)
+                              window=self.window, causal=self.causal,
+                              bias=att_bias, sink=self.sink,
+                              kv_mask=kv_mask, dropout=rate,
+                              dropout_seed=seed)
         return out.reshape(q.shape[0], q.shape[1], -1)
 
     def _band(self, keys, q_pos):
-        """keys (S,), q_pos (..., T) -> (..., T, S) attendable mask."""
+        """keys (S,), q_pos (..., T) -> (..., T, S) attendable mask (all
+        True when bidirectional)."""
+        if not self.causal:
+            return torch.ones(q_pos.shape + keys.shape, dtype=torch.bool,
+                              device=keys.device)
         mask = keys <= q_pos[..., None]
         if self.window > 0:
             mask &= keys > q_pos[..., None] - self.window
@@ -130,12 +141,19 @@ class CausalSelfAttention(nn.Module):
 
     def forward(self, x, cache: Optional[dict] = None, offset=None,
                 block_table=None, paged_kernel: bool = True,
-                train: bool = False, flash: bool = False, generator=None):
-        """x (B, T, D).  Without ``cache``: full-sequence causal attention,
-        through the flash op when ``flash``, with dropout when ``train``.
+                train: bool = False, flash: bool = False, generator=None,
+                kv_mask=None, att_bias=None):
+        """x (B, T, D).  Without ``cache``: full-sequence attention, through
+        the flash op when ``flash`` and the options allow (a bias shared by
+        the batch; a window only when causal), with dropout when ``train``.
         With ``cache`` (this layer's dict): decode at ``offset`` — an int
         shared by all rows, or a (B,) tensor of per-row positions; K/V of
-        the T new tokens are written into the cache in place first."""
+        the T new tokens are written into the cache in place first.
+
+        ``kv_mask`` (B, T) bool makes False keys unattendable (a padded
+        encoder source; full-sequence only).  ``att_bias`` (1|B, H, T, S)
+        is added to the logits before masking (T5's relative positions);
+        the paged path rejects it."""
         B, T, _ = x.shape
         H, Hkv, hd = self.n_heads, self.n_kv_heads, self.head_dim
         q, k, v = self.qkv(x).split([H * hd, Hkv * hd, Hkv * hd], dim=-1)
@@ -143,13 +161,23 @@ class CausalSelfAttention(nn.Module):
         k = k.reshape(B, T, Hkv, hd)
         v = v.reshape(B, T, Hkv, hd)
         dev = x.device
-        if cache is None and flash:
-            out = self._flash(q, k, v, train, generator)
+        if cache is not None and (not self.causal or kv_mask is not None):
+            raise ValueError("decode needs causal attention and no kv_mask")
+        flash_bias_ok = att_bias is None or (
+            att_bias.shape[0] == 1 and tuple(att_bias.shape[-2:]) == (T, T))
+        if (cache is None and flash and flash_bias_ok
+                and (self.causal or self.window <= 0)):
+            out = self._flash(q, k, v, train, generator, kv_mask, att_bias)
         elif cache is None:
             pos = torch.arange(T, device=dev)
-            out = self._attend(q, k, v, self._band(pos, pos),
-                               self.drop if train else 0.0)
+            mask = self._band(pos, pos)
+            if kv_mask is not None:
+                mask = mask & kv_mask.bool()[:, None, None, :]
+            out = self._attend(q, k, v, mask, self.drop if train else 0.0,
+                               att_bias)
         elif "pool_k" in cache:
+            if att_bias is not None:
+                raise ValueError("att_bias is not supported in paged decode")
             out = self._paged(q, k, v, cache, offset, block_table,
                               paged_kernel)
         else:
@@ -166,7 +194,7 @@ class CausalSelfAttention(nn.Module):
                 ck[:, off:off + T] = k
                 cv[:, off:off + T] = v
                 mask = self._band(keys, off + torch.arange(T, device=dev))
-            out = self._attend(q, ck, cv, mask)
+            out = self._attend(q, ck, cv, mask, bias=att_bias)
         return self.out(out)
 
     def _paged(self, q, k, v, cache, offset, block_table, paged_kernel):
@@ -201,30 +229,52 @@ class CausalSelfAttention(nn.Module):
 
 
 class MLP(nn.Module):
-    """Feed-forward block: fc_in, tanh-approximate GELU, fc_out, then
-    dropout of rate ``drop`` in training calls."""
+    """Feed-forward block: fc_in, the activation, fc_out, then dropout of
+    rate ``drop`` in training calls.  ``act`` is 'gelu' (tanh-approximate
+    unless ``exact_gelu``), 'relu' (T5 v1.0) or 'silu'; None is gelu, or
+    silu when ``gated``.  ``gated`` multiplies the activation by a second
+    projection, ``fc_gate`` (SwiGLU; GEGLU with act 'gelu')."""
+
+    _ACTS = ("gelu", "relu", "silu")
 
     def __init__(self, d_model: int, d_ff: int, drop: float = 0.0,
-                 device=None):
+                 act: Optional[str] = None, gated: bool = False,
+                 exact_gelu: bool = False, device=None):
         super().__init__()
+        if act is not None and act not in self._ACTS:
+            raise ValueError(f"act must be one of {sorted(self._ACTS)}, "
+                             f"got {act!r}")
         self.drop = drop
+        self.act = act or ("silu" if gated else "gelu")
+        self.exact_gelu = exact_gelu
         self.fc_in = nn.Linear(d_model, d_ff, device=device)
+        self.fc_gate = (nn.Linear(d_model, d_ff, device=device) if gated
+                        else None)
         self.fc_out = nn.Linear(d_ff, d_model, device=device)
 
     def forward(self, x, train: bool = False):
-        h = self.fc_out(F.gelu(self.fc_in(x), approximate="tanh"))
+        h = self.fc_in(x)
+        if self.act == "gelu":
+            h = F.gelu(h, approximate="none" if self.exact_gelu else "tanh")
+        else:
+            h = F.relu(h) if self.act == "relu" else F.silu(h)
+        if self.fc_gate is not None:
+            h = h * self.fc_gate(x)
+        h = self.fc_out(h)
         return F.dropout(h, self.drop) if train and self.drop > 0.0 else h
 
 
 class TransformerBlock(nn.Module):
     """Pre-norm block: x + attn(ln1(x)), then + mlp(ln2(x)) with a
     ``d_ff`` hidden width (0: 4*d_model); ``drop`` reaches the attention
-    probabilities and the MLP output."""
+    probabilities and the MLP output; ``act``, ``gated`` and
+    ``exact_gelu`` go to the :class:`MLP`."""
 
     def __init__(self, d_model: int, n_heads: int, *, d_ff: int = 0,
                  drop: float = 0.0, n_kv_heads: int = 0, window: int = 0,
                  sinks: bool = False, rms_norm: bool = False,
-                 norm_eps: float = 1e-6, device=None):
+                 norm_eps: float = 1e-6, act: Optional[str] = None,
+                 gated: bool = False, exact_gelu: bool = False, device=None):
         super().__init__()
         norm = nn.RMSNorm if rms_norm else nn.LayerNorm
         self.ln1 = norm(d_model, eps=norm_eps, device=device)
@@ -232,7 +282,8 @@ class TransformerBlock(nn.Module):
                                         n_kv_heads=n_kv_heads, window=window,
                                         sinks=sinks, drop=drop, device=device)
         self.ln2 = norm(d_model, eps=norm_eps, device=device)
-        self.mlp = MLP(d_model, d_ff or 4 * d_model, drop, device=device)
+        self.mlp = MLP(d_model, d_ff or 4 * d_model, drop, act=act,
+                       gated=gated, exact_gelu=exact_gelu, device=device)
 
     def forward(self, x, cache=None, offset=None, block_table=None,
                 paged_kernel: bool = True, train: bool = False,

@@ -1,16 +1,25 @@
-"""Causal flash attention with in-kernel dropout, forward and backward.
+"""Flash attention with in-kernel dropout, forward and backward.
 
 Counterpart of ``neuralnetworklibrary_tpu/ops/flash_attention.py``.  On CUDA
-tensors :func:`flash_attention` is a ``torch.autograd.Function`` over three
+tensors :func:`flash_attention` is a ``torch.autograd.Function`` over four
 hand-written Hopper kernels in ``csrc/flash_attention.cu``: the forward
 (:func:`flash_fwd`, replacing the Pallas ``_fwd_kernel``) saves ``(o, lse)``;
 the backward computes ``delta = rowsum(dO * O)`` as a torch op and launches
-the dq kernel (:func:`flash_bwd_dq`, ``_bwd_dq_kernel``) and the dk/dv
-kernel (:func:`flash_bwd_dkv`, ``_bwd_dkv_kernel``).  On CPU tensors it runs
-:func:`reference_flash_attention`, the plain einsum version of the same
-function, which autograd differentiates.  There is no other fallback: an
-option the kernels do not take yet raises ``NotImplementedError`` on a CUDA
-tensor.
+the dq kernel (:func:`flash_bwd_dq`, ``_bwd_dq_kernel``), the dk/dv kernel
+(:func:`flash_bwd_dkv`, ``_bwd_dkv_kernel``) and, when a bias needs its
+gradient, the dbias kernel (:func:`flash_bwd_dbias`, ``_bwd_dbias_kernel``).
+The kernels take causal or bidirectional attention, a causal window, a
+batch-shared (H, T, T) logit bias and a (B, T) key mask.  On CPU tensors it
+runs :func:`reference_flash_attention`, the plain einsum version of the
+same function, which autograd differentiates.  There is no other fallback:
+an option the kernels do not take yet (``sink``, ``q_start``) raises
+``NotImplementedError`` on a CUDA tensor.
+
+The key mask enters the kernels additively, -1e30 on a masked key, as in
+JAX, so a row whose every key is masked attends uniformly over the keys its
+position lets it see.  Its gradient is the plain version's, whose masked
+scores are replaced rather than offset: no gradient reaches q, k or the
+bias through a masked key.
 
 Dropout follows the JAX kernels exactly: the keep mask is the murmur3 hash
 :func:`drop_keep` of (seed, b*H + h, query position, key position), it
@@ -30,7 +39,7 @@ import torch
 _NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
-_TODO = "not in the CUDA kernels yet (ROADMAP Queue 2, K1-K4)"
+_TODO = "not in the CUDA kernels yet (ROADMAP Queue 2)"
 
 
 @functools.cache
@@ -39,17 +48,21 @@ def _lib():
 
     lib = load("flash_attention")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # q, k, v, o, lse; B, T, H, hd; sm_scale, window, rate, seed, dtype; stream
-    lib.nnl_flash_fwd.argtypes = [p] * 5 + [i] * 4 + [f, i, f, i, i, p]
-    # q, k, v, do, lse, delta, dq; B, T, H, hd; sm_scale, window, rate,
-    # seed, dtype; stream
-    lib.nnl_flash_bwd_dq.argtypes = [p] * 7 + [i] * 4 + [f, i, f, i, i, p]
-    # q, k, v, do, lse, delta, dk, dv; then as above
-    lib.nnl_flash_bwd_dkv.argtypes = [p] * 8 + [i] * 4 + [f, i, f, i, i, p]
+    # B, T, H, hd; sm_scale, causal, window, rate, seed, dtype; stream
+    tail = [i] * 4 + [f, i, i, f, i, i, p]
+    # q, k, v, bias, kvm, o, lse
+    lib.nnl_flash_fwd.argtypes = [p] * 7 + tail
+    # q, k, v, do, lse, delta, bias, kvm, dq
+    lib.nnl_flash_bwd_dq.argtypes = [p] * 9 + tail
+    # q, k, v, do, lse, delta, bias, kvm, dk, dv
+    lib.nnl_flash_bwd_dkv.argtypes = [p] * 10 + tail
+    # q, k, v, do, lse, delta, bias, kvm, dbias
+    lib.nnl_flash_bwd_dbias.argtypes = [p] * 9 + tail
     # seeds, n_seeds, n_bh, n_q, n_k, q0, k0, rate, out, stream
     lib.nnl_flash_drop_keep.argtypes = [p] + [i] * 6 + [f, p, p]
     for fn in (lib.nnl_flash_fwd, lib.nnl_flash_bwd_dq,
-               lib.nnl_flash_bwd_dkv, lib.nnl_flash_drop_keep):
+               lib.nnl_flash_bwd_dkv, lib.nnl_flash_bwd_dbias,
+               lib.nnl_flash_drop_keep):
         fn.restype = i
     lib.nnl_flash_error_string.argtypes = [i]
     lib.nnl_flash_error_string.restype = ctypes.c_char_p
@@ -117,8 +130,10 @@ def reference_flash_attention(q, k, v, sm_scale=None, window: int = 0,
     Takes every option of the JAX ``flash_attention``: ``bias`` (H, T, T)
     or (1, H, T, T) added after the scale, ``sink`` (H,) joining each
     softmax row's normalizer only, ``kv_mask`` (B, T) bool (False = never
-    attended), ``q_start`` (B, T) document starts of packed rows.  A row
-    with every key masked attends uniformly, as in JAX.  ``return_lse``
+    attended), ``q_start`` (B, T) document starts of packed rows.  Masked
+    keys' scores become -1e30, so a row with every key masked attends
+    uniformly, as in JAX, over the keys its position lets it see (causal,
+    window and document starts remove keys outright).  ``return_lse``
     also returns the (B, H, T) logsumexp the kernels save (sink included).
     """
     B, T, H, hd = q.shape
@@ -127,24 +142,24 @@ def reference_flash_attention(q, k, v, sm_scale=None, window: int = 0,
     s = torch.einsum("bqhd,bkhd->bhqk", q, k) * sm_scale
     if bias is not None:
         s = s + (bias if bias.ndim == 4 else bias[None]).to(s.dtype)
-    pos = torch.arange(T, device=q.device)
-    keep = torch.ones(T, T, dtype=torch.bool, device=q.device)
-    if causal:
-        keep = pos[:, None] >= pos[None, :]
-        if window > 0:
-            keep = keep & (pos[:, None] - pos[None, :] < window)
-    keep = keep[None, None]
     if kv_mask is not None:
-        keep = keep & kv_mask.bool()[:, None, None, :]
+        s = s.masked_fill(~kv_mask.bool()[:, None, None, :], _NEG_INF)
+    pos = torch.arange(T, device=q.device)
+    seen = None    # what each query sees by position
+    if causal:
+        seen = pos[:, None] >= pos[None, :]
+        if window > 0:
+            seen = seen & (pos[:, None] - pos[None, :] < window)
     if q_start is not None:
-        keep = keep & (pos[None, None, None, :]
-                       >= q_start.long()[:, None, :, None])
-    s = s.masked_fill(~keep, _NEG_INF)
+        docs = pos[None, None, None, :] >= q_start.long()[:, None, :, None]
+        seen = docs if seen is None else seen & docs
+    if seen is not None:
+        s = s.masked_fill(~seen, float("-inf"))
     if sink is not None:
         s = torch.cat([s, sink.to(s.dtype)[None, :, None, None].expand(
             B, H, T, 1)], dim=-1)
     lse = torch.logsumexp(s, dim=-1)
-    p = torch.exp(s - lse[..., None])
+    p = torch.softmax(s, dim=-1)
     if sink is not None:
         p = p[..., :-1]
     if dropout > 0.0:
@@ -177,7 +192,7 @@ def _run(fn, *args):
                            + _lib().nnl_flash_error_string(err).decode())
 
 
-def _shape_args(q, sm_scale, window, dropout, seed):
+def _shape_args(q, sm_scale, causal, window, dropout, seed):
     B, T, H, hd = q.shape
     if hd not in _HEAD_DIMS:
         raise ValueError(f"the flash kernels take head dim {_HEAD_DIMS}, "
@@ -185,61 +200,101 @@ def _shape_args(q, sm_scale, window, dropout, seed):
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"the flash kernels take float32 or bfloat16, "
                          f"got {q.dtype}")
-    return (B, T, H, hd, float(sm_scale), int(window), float(dropout),
-            _int32(seed or 0), _DTYPE_CODE[q.dtype],
+    return (B, T, H, hd, float(sm_scale), int(bool(causal)), int(window),
+            float(dropout), _int32(seed or 0), _DTYPE_CODE[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
-def flash_fwd(q, k, v, sm_scale, window=0, dropout=0.0, seed=0):
+def _option_ptrs(q, bias, kvm):
+    """Pointers of the (H, T, T) bias and the (B, T) additive key mask, both
+    float32 and contiguous on q's device, or None."""
+    B, T, H, _ = q.shape
+    for name, t, shape in (("bias", bias, (H, T, T)), ("kvm", kvm, (B, T))):
+        if t is None:
+            continue
+        _check({name: t}, torch.float32, q.device)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    return (None if bias is None else bias.data_ptr(),
+            None if kvm is None else kvm.data_ptr())
+
+
+def flash_fwd(q, k, v, sm_scale, window=0, dropout=0.0, seed=0, *,
+              causal=True, bias=None, kvm=None):
     """K1: (o, lse) for contiguous CUDA (B, T, H, hd) q/k/v; lse is
-    (B*H, T) float32.  ``flash_fwd.launches`` counts launches."""
+    (B*H, T) float32.  ``bias`` is a float32 (H, T, T) logit bias, ``kvm``
+    the float32 (B, T) additive key mask (0 or -1e30), each or None.
+    ``flash_fwd.launches`` counts launches."""
     _check({"k": k, "v": v, "q": q}, q.dtype, q.device)
-    args = _shape_args(q, sm_scale, window, dropout, seed)
+    args = _shape_args(q, sm_scale, causal, window, dropout, seed)
     B, T, H = q.shape[:3]
     o = torch.empty_like(q)
     lse = torch.empty(B * H, T, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         _run(_lib().nnl_flash_fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             o.data_ptr(), lse.data_ptr(), *args)
+             *_option_ptrs(q, bias, kvm), o.data_ptr(), lse.data_ptr(),
+             *args)
     flash_fwd.launches += 1
     return o, lse
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, sm_scale, window=0, dropout=0.0,
-                 seed=0):
-    """K2: dq from the saved lse and delta = rowsum(dO * O), both (B*H, T)
-    float32.  ``flash_bwd_dq.launches`` counts launches."""
+def _bwd_inputs(q, k, v, do, lse, delta):
     _check({"k": k, "v": v, "do": do, "lse": lse, "delta": delta},
            q.dtype, q.device)
-    args = _shape_args(q, sm_scale, window, dropout, seed)
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr())
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, sm_scale, window=0, dropout=0.0,
+                 seed=0, *, causal=True, bias=None, kvm=None):
+    """K2: dq from the saved lse and delta = rowsum(dO * O), both (B*H, T)
+    float32; options as :func:`flash_fwd`.  ``flash_bwd_dq.launches``
+    counts launches."""
+    ptrs = _bwd_inputs(q, k, v, do, lse, delta)
+    args = _shape_args(q, sm_scale, causal, window, dropout, seed)
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        _run(_lib().nnl_flash_bwd_dq, q.data_ptr(), k.data_ptr(),
-             v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        _run(_lib().nnl_flash_bwd_dq, *ptrs, *_option_ptrs(q, bias, kvm),
              dq.data_ptr(), *args)
     flash_bwd_dq.launches += 1
     return dq
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, sm_scale, window=0, dropout=0.0,
-                  seed=0):
+                  seed=0, *, causal=True, bias=None, kvm=None):
     """K3: (dk, dv), with the same inputs as :func:`flash_bwd_dq`.
     ``flash_bwd_dkv.launches`` counts launches."""
-    _check({"k": k, "v": v, "do": do, "lse": lse, "delta": delta},
-           q.dtype, q.device)
-    args = _shape_args(q, sm_scale, window, dropout, seed)
+    ptrs = _bwd_inputs(q, k, v, do, lse, delta)
+    args = _shape_args(q, sm_scale, causal, window, dropout, seed)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
-        _run(_lib().nnl_flash_bwd_dkv, q.data_ptr(), k.data_ptr(),
-             v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        _run(_lib().nnl_flash_bwd_dkv, *ptrs, *_option_ptrs(q, bias, kvm),
              dk.data_ptr(), dv.data_ptr(), *args)
     flash_bwd_dkv.launches += 1
     return dk, dv
 
 
+def flash_bwd_dbias(q, k, v, do, lse, delta, sm_scale, window=0,
+                    dropout=0.0, seed=0, *, causal=True, bias, kvm=None):
+    """K4: dbias (H, T, T) float32 = the sum over the batch of
+    P * (dP - delta), with the same inputs as :func:`flash_bwd_dq` and the
+    bias required.  ``flash_bwd_dbias.launches`` counts launches."""
+    if bias is None:
+        raise ValueError("flash_bwd_dbias needs the bias")
+    ptrs = _bwd_inputs(q, k, v, do, lse, delta)
+    args = _shape_args(q, sm_scale, causal, window, dropout, seed)
+    dbias = torch.empty_like(bias)
+    with torch.cuda.device(q.device):
+        _run(_lib().nnl_flash_bwd_dbias, *ptrs, *_option_ptrs(q, bias, kvm),
+             dbias.data_ptr(), *args)
+    flash_bwd_dbias.launches += 1
+    return dbias
+
+
 flash_fwd.launches = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
+flash_bwd_dbias.launches = 0
 
 
 def kernel_drop_keep(seeds, n_bh: int, n_q: int, n_k: int, rate: float,
@@ -260,39 +315,49 @@ def kernel_drop_keep(seeds, n_bh: int, n_q: int, n_k: int, rate: float,
 class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, q, k, v, sm_scale, window, dropout, seed):
+    def forward(ctx, q, k, v, bias, kvm, sm_scale, causal, window, dropout,
+                seed):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        o, lse = flash_fwd(q, k, v, sm_scale, window, dropout, seed)
-        ctx.save_for_backward(q, k, v, o, lse)
+        kw = dict(causal=causal, bias=bias, kvm=kvm)
+        o, lse = flash_fwd(q, k, v, sm_scale, window, dropout, seed, **kw)
+        ctx.save_for_backward(q, k, v, o, lse, bias, kvm)
         ctx.args = (sm_scale, window, dropout, seed)
+        ctx.causal = causal
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        do = do.contiguous()
+        q, k, v, o, lse, bias, kvm = ctx.saved_tensors
+        do = do.to(q.dtype).contiguous()
         B, T, H, _ = q.shape
         delta = ((do.float() * o.float()).sum(-1)      # (B, T, H)
                  .transpose(1, 2).reshape(B * H, T).contiguous())
-        dq = flash_bwd_dq(q, k, v, do, lse, delta, *ctx.args)
-        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, *ctx.args)
-        return dq, dk, dv, None, None, None, None
+        kw = dict(causal=ctx.causal, bias=bias, kvm=kvm)
+        inputs = (q, k, v, do, lse, delta, *ctx.args)
+        dq = flash_bwd_dq(*inputs, **kw)
+        dk, dv = flash_bwd_dkv(*inputs, **kw)
+        dbias = (flash_bwd_dbias(*inputs, **kw) if ctx.needs_input_grad[3]
+                 else None)
+        return dq, dk, dv, dbias, None, None, None, None, None, None
 
 
 def flash_attention(q, k, v, sm_scale=None, window: int = 0,
                     causal: bool = True, dropout: float = 0.0,
                     dropout_seed=None, bias=None, sink=None, kv_mask=None,
                     q_start=None):
-    """Causal attention over (B, T, H, hd) q/k/v -> (B, T, H, hd), on the
-    inputs' device; differentiable.
+    """Attention over (B, T, H, hd) q/k/v -> (B, T, H, hd), on the inputs'
+    device; differentiable.
 
-    ``window`` > 0 lets query t see keys (t - window, t].  ``dropout`` in
-    (0, 1) drops attention probabilities with the hash mask of seed
-    ``dropout_seed`` (an int32, or anything ``int()`` takes).  T is any
-    length.  On CUDA tensors the kernels take float32 or bfloat16 and head
-    dims 64 and 128; ``causal=False``, ``bias``, ``sink``, ``kv_mask`` and
-    ``q_start`` raise NotImplementedError there (the CPU plain version
-    takes them all).
+    ``causal=False`` is bidirectional.  ``window`` > 0 lets query t see keys
+    (t - window, t] (causal only).  ``bias`` is a batch-shared logit bias,
+    (H, T, T) or (1, H, T, T), added after the scale in float32 (T5's
+    relative positions), with its gradient; a per-batch bias raises
+    ValueError, as in JAX.  ``kv_mask`` (B, T) bool: False keys are never
+    attended.  ``dropout`` in (0, 1) drops attention probabilities with
+    the hash mask of seed ``dropout_seed`` (an int32, or anything ``int()``
+    takes).  T is any length.  On CUDA tensors the kernels take float32 or
+    bfloat16 and head dims 64 and 128; ``sink`` and ``q_start`` raise
+    NotImplementedError there (the CPU plain version takes them).
     """
     B, T, H, hd = q.shape
     if k.shape != q.shape or v.shape != q.shape:
@@ -306,6 +371,21 @@ def flash_attention(q, k, v, sm_scale=None, window: int = 0,
             raise ValueError(f"dropout must lie in (0, 1), got {dropout}")
         if dropout_seed is None:
             raise ValueError("dropout > 0 needs dropout_seed= (an int32)")
+    if bias is not None:
+        if bias.ndim == 4:
+            if bias.shape[0] != 1:
+                raise ValueError(
+                    "flash_attention bias must be batch-shared: got leading "
+                    f"dim {bias.shape[0]} (use the einsum path for "
+                    "per-batch biases)")
+            bias = bias[0]
+        if tuple(bias.shape) != (H, T, T):
+            raise ValueError(f"bias must be (H, T, T) = ({H}, {T}, {T}), "
+                             f"got {tuple(bias.shape)}")
+        bias = bias.float()
+    if kv_mask is not None and tuple(kv_mask.shape) != (B, T):
+        raise ValueError(f"kv_mask must be (B, T) = ({B}, {T}), "
+                         f"got {tuple(kv_mask.shape)}")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(hd)
     if q.device.type == "cpu":
@@ -315,11 +395,13 @@ def flash_attention(q, k, v, sm_scale=None, window: int = 0,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, "
                          f"got {q.device}")
-    for name, val in (("causal=False", not causal), ("bias", bias),
-                      ("sink", sink), ("kv_mask", kv_mask),
-                      ("q_start", q_start)):
-        if val is not None and val is not False:
+    for name, val in (("sink", sink), ("q_start", q_start)):
+        if val is not None:
             raise NotImplementedError(f"flash_attention: {name} is {_TODO}")
-    return _FlashAttention.apply(q, k, v, float(sm_scale), int(window),
-                                 float(dropout),
-                                 _int32(dropout_seed or 0))
+    kvm = (None if kv_mask is None else torch.zeros(
+        B, T, dtype=torch.float32, device=q.device).masked_fill_(
+        ~kv_mask.bool(), _NEG_INF))
+    return _FlashAttention.apply(
+        q, k, v, None if bias is None else bias.contiguous(), kvm,
+        float(sm_scale), bool(causal), int(window), float(dropout),
+        _int32(dropout_seed or 0))

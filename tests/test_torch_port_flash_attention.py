@@ -2,12 +2,15 @@
 CPU tensors, and what the CUDA kernels are held against on the card)
 against the JAX ``flash_attention`` in interpret mode, forward output and
 dq/dk/dv, for causal, windowed and dropout attention at a T that is no
-multiple of 128; the dropout keep mask bit for bit against the JAX
-``_drop_keep``; the options the kernels do not take yet against the JAX
+multiple of 128; the T5 options (bidirectional, key mask, batch-shared
+bias) with dbias, against JAX's flash in interpret mode once and against
+``jax.grad`` of its einsum reference otherwise; the dropout keep mask bit
+for bit against the JAX ``_drop_keep``; the other options against the JAX
 einsum reference; and the model's flash dispatch.
 
 Tolerance: atol 2e-5 in float32 on values of order 1 (the two sum in
-different orders; the JAX kernel also scales q before its dot).
+different orders; the JAX kernel also scales q before its dot); dbias,
+a sum over the batch of such terms, 4e-5.
 """
 
 import numpy as np
@@ -67,6 +70,100 @@ def test_plain_matches_jax_forward_and_grads(name):
     for got, want, n in zip((qt.grad, kt.grad, vt.grad), grads_j, "qkv"):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                    atol=ATOL, err_msg=f"d{n}")
+
+
+T5_CASES = {
+    # JAX's flash kernels in interpret mode: the T5 encoder's options
+    "bidir_mask_bias_interpret": dict(T=128, causal=False, mask=True,
+                                      interpret=True),
+    "causal_bias": dict(T=100, causal=True, mask=False),
+    "bidir_mask_bias": dict(T=77, causal=False, mask=True),
+    "causal_mask_bias_dropout": dict(T=90, causal=True, mask=True,
+                                     dropout=0.1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(T5_CASES))
+def test_t5_options_match_jax_with_dbias(name):
+    """Forward and dq, dk, dv, dbias with a (1, H, T, T) bias and a ragged
+    key mask; dropout against the JAX flash (its mask is the same hash)."""
+    kw = dict(T5_CASES[name])
+    T, causal = kw.pop("T"), kw.pop("causal")
+    interpret = kw.pop("interpret", False) or "dropout" in kw
+    rng = np.random.default_rng(21)
+    q, k, v, do = (rng.standard_normal((2, T, H, HD)).astype(np.float32)
+                   for _ in range(4))
+    bias = (rng.standard_normal((1, H, T, T)) * 0.5).astype(np.float32)
+    mask = None
+    if kw.pop("mask"):
+        mask = np.arange(T)[None, :] < np.array([T, T // 2 + 3])[:, None]
+    extra = {}
+    if "dropout" in kw:
+        extra = dict(dropout=kw["dropout"], dropout_seed=-77)
+
+    def jfn(a, b, c, bb):
+        m = None if mask is None else jnp.asarray(mask)
+        if interpret:
+            return jax_flash(a, b, c, causal=causal, bias=bb, kv_mask=m,
+                             **extra)
+        return jax_reference(a, b, c, causal=causal, bias=bb, kv_mask=m)
+
+    ja = [jnp.asarray(a) for a in (q, k, v, bias)]
+    o_j = jfn(*ja)
+    grads_j = jax.grad(lambda *a: jnp.sum(jfn(*a) * do),
+                       argnums=(0, 1, 2, 3))(*ja)
+    ts = [torch.tensor(a, requires_grad=True) for a in (q, k, v, bias)]
+    o_t = flash_attention(*ts[:3], causal=causal, bias=ts[3],
+                          kv_mask=None if mask is None
+                          else torch.tensor(mask), **extra)
+    (o_t * torch.tensor(do)).sum().backward()
+    np.testing.assert_allclose(o_t.detach().numpy(), np.asarray(o_j),
+                               rtol=0, atol=ATOL)
+    for t, want, n, atol in zip(ts, grads_j, ("q", "k", "v", "bias"),
+                                (ATOL, ATOL, ATOL, 2 * ATOL)):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(want), rtol=0,
+                                   atol=atol, err_msg=f"d{n}")
+    if mask is not None:   # masked keys get exactly zero dk, dv, dbias
+        assert not ts[1].grad[1, T // 2 + 3:].any()
+        assert not ts[2].grad[1, T // 2 + 3:].any()
+
+
+def test_fully_masked_row_attends_uniformly():
+    """A batch row whose keys are all masked gets the mean of v over its
+    keys, as JAX's reference and kernels give (bidirectional); no gradient
+    reaches q, k or the bias through it, and dv is dO / T."""
+    rng = np.random.default_rng(22)
+    q, k, v, do = (rng.standard_normal((2, 40, H, HD)).astype(np.float32)
+                   for _ in range(4))
+    bias = rng.standard_normal((H, 40, 40)).astype(np.float32)
+    mask = np.ones((2, 40), bool)
+    mask[1] = False
+    want = jax_reference(*(jnp.asarray(a) for a in (q, k, v)),
+                         bias=jnp.asarray(bias), causal=False,
+                         kv_mask=jnp.asarray(mask))
+    ts = [torch.tensor(a, requires_grad=True) for a in (q, k, v, bias)]
+    o = flash_attention(*ts[:3], causal=False, bias=ts[3],
+                        kv_mask=torch.tensor(mask))
+    (o * torch.tensor(do)).sum().backward()
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(want), rtol=0,
+                               atol=ATOL)
+    np.testing.assert_allclose(o[1].detach().numpy(),
+                               np.broadcast_to(v[1].mean(0), (40, H, HD)),
+                               rtol=0, atol=ATOL)
+    assert not ts[0].grad[1].any() and not ts[1].grad[1].any()
+    np.testing.assert_allclose(ts[2].grad[1].numpy(),
+                               np.broadcast_to(do[1].sum(0) / 40,
+                                               (40, H, HD)), atol=1e-6)
+
+
+def test_bias_checks():
+    q = torch.zeros(2, 8, H, HD)
+    with pytest.raises(ValueError, match="batch-shared"):
+        flash_attention(q, q, q, bias=torch.zeros(2, H, 8, 8))
+    with pytest.raises(ValueError, match="bias must be"):
+        flash_attention(q, q, q, bias=torch.zeros(H, 8, 9))
+    with pytest.raises(ValueError, match="kv_mask must be"):
+        flash_attention(q, q, q, kv_mask=torch.ones(2, 9, dtype=torch.bool))
 
 
 SEEDS = [0, 1, -1, 12345, -987654321, 2 ** 31 - 1, -2 ** 31]
