@@ -1,11 +1,13 @@
 """Drive the PyTorch port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py [--seed N] [--profile]
+    python3 chip_smoke.py [--seed N] [--profile] [--tile-sweep]
 
 Phases, each printing one JSON line (the first line printed is the card's
 name and power limit from nvidia-smi):
 
-- build:  compile every CUDA source of the port with nvcc, in parallel.
+- build:  compile every CUDA source of the port with nvcc, in parallel;
+          ptxas's registers and spills per kernel (a spill in the
+          tensor-core flash kernels fails the run).
 - kernel: each kernel against its plain PyTorch version on the card.  The
           paged decode kernel over dtypes, head layouts, block sizes,
           windows, sinks, offset edges and shared table rows, and at the
@@ -13,7 +15,9 @@ name and power limit from nvidia-smi):
           over float32 and bf16, hd 64 and 128, window 0 and > 0, dropout
           0 and 0.1, at T 1024 and at a T that is no multiple of the tile,
           and at the training path's own shape; and the kernels' dropout
-          hash against the plain one bit for bit.
+          hash against the plain one bit for bit.  Then the edges of the
+          bf16 tensor-core K1 and K2: T 127, 129, 200, 1000, windows 100 and
+          129, B*H 1 and 3, T 114 with a bias, a fully masked batch row.
 - serve:  GPT-2-124M at full width (random weights from --seed, loaded
           through load_jax_params): (a) one f32 paged decode step, kernel
           path against gather path; (b) bf16 PagedServingEngine over 16
@@ -57,12 +61,18 @@ name and power limit from nvidia-smi):
           on one fixed batch, then evaluate
           over 2 batches; (c) seq2seq_generate, greedy, 16 tokens for 2
           sources.  K1-K4 launches are counted over (b) and (c).
-- timing: CUDA-event medians with the L2 cache flushed before each call;
-          K1-K4 also at the T5 encoder's shape.
+- timing: each call's device time by CUDA events, with the L2 flushed
+          and the card held by a spin kernel while the host enqueues the
+          call (Timer); the median and the spread (min, max) of the reps.
+          Library yardsticks: SDPA with its backend pinned, cuDNN's LSTM;
+          for SDPA's backward also the events without the spin and the
+          profiler's mean.  K1-K4 also at the T5 encoder's shape.
 
 --profile adds torch.profiler breakdowns of one more serve run and of one
 more train step of each model: device time by kernel and, for the train
-steps, the host ops with the most host time of their own.
+steps, the host ops with the most host time of their own.  --tile-sweep
+adds K1 and K2 built with other key-tile widths and ring depths, timed at
+hd 64 and 128 (the measurement behind the shipped constants).
 
 Then a "kernels" line with every ported kernel, and last the line
 {"ok": true, "device": {...}}.  Any failure exits non-zero; no phase
@@ -74,6 +84,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -91,6 +102,11 @@ FLASH_REPLACES = {
     "flash_bwd_dkv": "neuralnetworklibrary_tpu/ops/flash_attention.py:338",
     "flash_bwd_dbias": "neuralnetworklibrary_tpu/ops/flash_attention.py:419"}
 FLASH_KERNELS = tuple(FLASH_REPLACES)
+# what computes each kernel: K1 and K2 run on the tensor cores for bf16
+# (the main paths' type) and on the CUDA cores in f32 for float32
+FLASH_DESIGN = {"flash_fwd": "wgmma+TMA, bf16 (SIMT f32 for float32)",
+                "flash_bwd_dq": "wgmma+TMA, bf16 (SIMT f32 for float32)",
+                "flash_bwd_dkv": "SIMT f32", "flash_bwd_dbias": "SIMT f32"}
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM (hopper-kernels guide, table 1)
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -210,19 +226,31 @@ def as_f32(case):
 
 
 class Timer:
-    """Median CUDA-event time of one call, with a 512 MB write before each
-    call so the call finds its inputs outside the 50 MB L2, as a decode step
-    does after the other layers' weights have passed through."""
+    """Device time of one call: CUDA events around it, after a 512 MB write
+    (so the call finds its inputs outside the 50 MB L2, as a decode step
+    does after the other layers' weights have passed through) and then a
+    spin kernel of ~5 ms, during which the host enqueues the whole call,
+    autograd's work included; so the events bracket only the call's work
+    on the card.  ``stats`` gives the median and the spread (min, max) of
+    the reps; ``spin=False`` drops the spin (the host's time can then land
+    inside the window, as it did for SDPA's backward before).
+    ``profiled_ms`` is a cross-check: the mean over the reps of the device
+    time torch.profiler sums over their kernels, in one profiler run, without
+    the flush."""
+
+    SPIN_CYCLES = 10_000_000     # ~5 ms at 1.98 GHz
 
     def __init__(self):
         self.flush = torch.empty(128 << 20, dtype=torch.int32, device="cuda")
 
-    def ms(self, fn, reps=30, warmup=3):
+    def stats(self, fn, reps=30, warmup=3, spin=True):
         for _ in range(warmup):
             fn()
         pairs = []
         for _ in range(reps):
             self.flush.zero_()
+            if spin:
+                torch.cuda._sleep(self.SPIN_CYCLES)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -230,7 +258,48 @@ class Timer:
             e.record()
             pairs.append((s, e))
         torch.cuda.synchronize()
-        return statistics.median(s.elapsed_time(e) for s, e in pairs)
+        return spread([s.elapsed_time(e) for s, e in pairs])
+
+    def profiled_ms(self, fn, reps=10):
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(device_us(evt) for evt in prof.key_averages()
+                    if evt.device_type == torch.autograd.DeviceType.CUDA)
+        return total / 1e3 / reps if total > 0 else None
+
+
+def spread(times):
+    """{"ms": median, "min": ..., "max": ...} of a list of ms."""
+    return {"ms": statistics.median(times), "min": min(times),
+            "max": max(times)}
+
+
+def device_us(evt):
+    """Device time of one key_averages() row of a kernel, in us."""
+    return getattr(evt, "self_device_time_total",
+                   getattr(evt, "self_cuda_time_total", 0))
+
+
+TIMED_KEYS = ("ms", "ms_spread", "plain_ms", "plain_ms_spread", "bound_ms",
+              "bound_by", "library_ms", "library_ms_spread")
+
+
+def timed_row(kernel, plain, library, bound):
+    """A timing row from the stats of the kernel, its plain version and the
+    library call, and (bound_ms, bound_by)."""
+    return {"ms": kernel["ms"], "ms_spread": [kernel["min"], kernel["max"]],
+            "plain_ms": plain["ms"],
+            "plain_ms_spread": [plain["min"], plain["max"]],
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": library["ms"],
+            "library_ms_spread": [library["min"], library["max"]]}
 
 
 def paged_bound(case):
@@ -256,17 +325,75 @@ def paged_bound(case):
 # ------------------------------------------------------------- phases
 
 
+def kernel_name(mangled):
+    """name<template arguments> of an Itanium-mangled kernel name (its last
+    nested name; ints, bools, float and bf16 arguments)."""
+    m = re.match(r"_ZN?", mangled)
+    if not m:
+        return mangled
+    s, p, name = mangled, m.end(), None
+    while p < len(s) and s[p].isdigit():
+        n = re.match(r"\d+", s[p:]).group()
+        name = s[p + len(n):p + len(n) + int(n)]
+        p += len(n) + int(n)
+    if name is None:
+        return mangled
+    args = []
+    if p < len(s) and s[p] == "I":
+        p += 1
+        while p < len(s) and s[p] != "E":
+            if s.startswith(("Li", "Lb"), p):
+                end = s.index("E", p)
+                v = s[p + 2:end]
+                args.append(v if s[p + 1] == "i"
+                            else "true" if v == "1" else "false")
+                p = end + 1
+            elif s[p].isdigit():
+                n = re.match(r"\d+", s[p:]).group()
+                ident = s[p + len(n):p + len(n) + int(n)]
+                args.append("bf16" if ident == "__nv_bfloat16" else ident)
+                p += len(n) + int(n)
+            else:
+                args.append({"f": "f32"}.get(s[p], s[p]))
+                p += 1
+    return f"{name}<{','.join(args)}>" if args else name
+
+
+def ptxas_report(log):
+    """{kernel: {"registers", "spill_stores", "spill_loads"}} from nvcc's
+    -Xptxas=-v output."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = out.setdefault(kernel_name(m.group(1)), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
 def phase_build():
     from neuralnetworklibrary_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
     res = build.build()
-    ptxas = {n: [ln.strip() for ln in r["log"].splitlines()
-                 if "registers" in ln or "spill" in ln]
-             for n, r in res.items()}
+    ptxas = {n: ptxas_report(r["log"]) for n, r in res.items()}
+    spilled = {k: v for k, v in ptxas["flash_attention"].items()
+               if "_tc_kernel" in k and (v.get("spill_stores")
+                                         or v.get("spill_loads"))}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_s": {n: r["seconds"] for n, r in res.items()},
           "ptxas": ptxas})
+    if spilled:
+        fail(f"the tensor-core flash kernels spill registers: {spilled}")
 
 
 def phase_kernel(seed):
@@ -512,6 +639,51 @@ def phase_flash_kernel(seed):
             "flash_bwd_dkv": max(errs["dk"], errs["dv"])}
 
 
+def phase_flash_edges(seed):
+    """The edges of the bf16 tensor-core K1 and K2 (K3, K4 run beside them
+    on their outputs): T no multiple of the 64-row key tile or the 128-row
+    block, windows that end inside a tile, fewer blocks than SMs (B*H 1
+    and 3), the T5 decoder's T 114 with a bias, and a batch row whose keys
+    are all masked; at hd 64 and 128, under FLASH_TOL."""
+    rng = np.random.default_rng(seed + 12)
+    cases = []
+    for T in (127, 129, 200, 1000):
+        cases += [dict(B=1, H=1, T=T), dict(B=1, H=3, T=T, dropout=0.1)]
+    cases += [dict(B=1, H=3, T=1000, window=w) for w in (100, 129)]
+    cases += [dict(B=2, H=2, T=114, bias=True, dropout=0.1),
+              dict(B=2, H=2, T=200, causal=False, mask="empty"),
+              dict(B=2, H=2, T=200, causal=False, mask="empty", bias=True),
+              dict(B=3, H=1, T=129, causal=False, mask="ragged", bias=True,
+                   dropout=0.1)]
+    worst, worst_share, n_cases = {}, 0.0, 0
+    for hd in (64, 128):
+        for c in cases:
+            case, b, m = flash_option_case(
+                rng, c["B"], c["T"], c["H"], hd, torch.bfloat16,
+                c.get("bias", False), c.get("mask"))
+            dseed = int(rng.integers(-2 ** 31, 2 ** 31))
+            errs, share = check_flash(case, c.get("window", 0),
+                                      c.get("dropout", 0.0), dseed,
+                                      torch.bfloat16,
+                                      causal=c.get("causal", True), bias=b,
+                                      kv_mask=m)
+            worst_share = max(worst_share, share)
+            for n, e in errs.items():
+                worst[n] = max(worst.get(n, 0.0), e)
+            if not share <= 1.0:
+                fail(f"flash kernels bf16 hd={hd} {c}: max|err| {errs} past "
+                     f"{FLASH_TOL[torch.bfloat16]}")
+            n_cases += 1
+    emit({"phase": "kernel",
+          "kernel": "flash_attention bf16 edges (K1, K2 wgmma+TMA; K3, K4 "
+                    "on their outputs)",
+          "cases": n_cases, "max_abs_err": worst,
+          "tol_atol_rtol": FLASH_TOL[torch.bfloat16],
+          "worst_share_of_tol": worst_share})
+    return {"flash_fwd": max(worst["o"], worst["lse"]),
+            "flash_bwd_dq": worst["dq"]}
+
+
 def flash_option_case(rng, B, T, H, hd, dtype, bias, mask):
     """Random q, k, v, do and the options: a float32 (H, T, T) bias (or
     None) and a (B, T) key mask: None, "ragged" (row b keeps a random
@@ -641,8 +813,7 @@ def profile_serve(engine_fn, requests):
         # kernels only: an aten op's row repeats its kernels' device time
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        dev_us = getattr(evt, "self_device_time_total",
-                         getattr(evt, "self_cuda_time_total", 0))
+        dev_us = device_us(evt)
         if dev_us > 0:
             rows.append((dev_us, evt.key, evt.count))
     rows.sort(reverse=True)
@@ -781,8 +952,7 @@ def profile_step(step, phase="train_profile"):
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             host.append((evt.self_cpu_time_total, evt.key, evt.count))
             continue
-        dev_us = getattr(evt, "self_device_time_total",
-                         getattr(evt, "self_cuda_time_total", 0))
+        dev_us = device_us(evt)
         if dev_us > 0:
             rows.append((dev_us, evt.key, evt.count))
     rows.sort(reverse=True)
@@ -932,8 +1102,35 @@ def flash_bound(B, T, H, hd, kind, causal=True, bias=False, mask=False):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def sdpa_fwd_bwd(timer, fn, args, do, backend):
+    """Stats of fn(*args) and of its backward alone (on a retained graph)
+    with the SDPA backend pinned (for the plain version, backend None); for
+    the backward also the CUDA-event stats without the spin and the
+    profiler's mean, beside it."""
+    import contextlib
+
+    from torch.nn.attention import sdpa_kernel
+
+    ctx = sdpa_kernel(backend) if backend is not None else (
+        contextlib.nullcontext())
+    with ctx:
+        xs = [t.detach().requires_grad_() for t in args]
+        fwd = timer.stats(lambda: fn(*xs), reps=10)
+        out = fn(*xs)
+
+        def bwd_fn():
+            return torch.autograd.grad(out, xs, do, retain_graph=True)
+
+        bwd = timer.stats(bwd_fn, reps=10)
+        check = {"cuda_events_without_spin": timer.stats(bwd_fn, reps=10,
+                                                         spin=False),
+                 "profiler_mean_ms": timer.profiled_ms(bwd_fn)}
+    return fwd, bwd, check
+
+
 def phase_flash_timing(seed):
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
 
     from neuralnetworklibrary_tpu_torch.ops.flash_attention import (
         flash_bwd_dkv,
@@ -950,46 +1147,48 @@ def phase_flash_timing(seed):
     o, lse = flash_fwd(q, k, v, scale)
     delta = ((do.float() * o.float()).sum(-1).transpose(1, 2)
              .reshape(B * H, T).contiguous())
-    ms = {"flash_fwd": timer.ms(lambda: flash_fwd(q, k, v, scale)),
-          "flash_bwd_dq": timer.ms(lambda: flash_bwd_dq(
+    st = {"flash_fwd": timer.stats(lambda: flash_fwd(q, k, v, scale)),
+          "flash_bwd_dq": timer.stats(lambda: flash_bwd_dq(
               q, k, v, do, lse, delta, scale)),
-          "flash_bwd_dkv": timer.ms(lambda: flash_bwd_dkv(
+          "flash_bwd_dkv": timer.stats(lambda: flash_bwd_dkv(
               q, k, v, do, lse, delta, scale))}
 
     # the plain version (in bf16, as the port would run it) and, as a
-    # yardstick the port never calls, SDPA: forward alone, and the
-    # backward alone (dq, dk, dv together) on a retained graph
-    def fwd_bwd_ms(fn):
-        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-        fwd = timer.ms(lambda: fn(qg, kg, vg))
-        out = fn(qg, kg, vg)
-        bwd = timer.ms(lambda: torch.autograd.grad(
-            out, (qg, kg, vg), do, retain_graph=True))
-        return fwd, bwd
-
-    plain_fwd, plain_bwd = fwd_bwd_ms(
-        lambda a, b, c: reference_flash_attention(a, b, c, scale))
-    lib_fwd, lib_bwd = fwd_bwd_ms(
-        lambda a, b, c: F.scaled_dot_product_attention(
+    # yardstick the port never calls, SDPA with its cuDNN and its flash
+    # backend pinned in turn: forward alone, and the backward alone (dq,
+    # dk, dv together); the faster of the two is the yardstick
+    plain_fwd, plain_bwd, _ = sdpa_fwd_bwd(
+        timer, lambda a, b, c: reference_flash_attention(a, b, c, scale),
+        (q, k, v), do, None)
+    lib = {backend.name: sdpa_fwd_bwd(
+        timer, lambda a, b, c: F.scaled_dot_product_attention(
             a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2),
-            is_causal=True).transpose(1, 2))
+            is_causal=True).transpose(1, 2),
+        (q, k, v), do, backend)
+        for backend in (SDPBackend.CUDNN_ATTENTION,
+                        SDPBackend.FLASH_ATTENTION)}
+    yardstick = min(lib, key=lambda n: lib[n][0]["ms"] + lib[n][1]["ms"])
+    lib_fwd, lib_bwd, lib_bwd_check = lib[yardstick]
     rows = {}
-    for name in ms:
-        bound_ms, bound_by = flash_bound(B, T, H, hd, name)
+    for name in st:
         fwd = name == "flash_fwd"
-        rows[name] = {
-            "ms": ms[name], "plain_ms": plain_fwd if fwd else plain_bwd,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_fwd if fwd else lib_bwd}
+        rows[name] = timed_row(st[name], plain_fwd if fwd else plain_bwd,
+                               lib_fwd if fwd else lib_bwd,
+                               flash_bound(B, T, H, hd, name))
         emit({"phase": "timing", "kernel": name, "B": B, "T": T, "H": H,
-              "hd": hd, "dtype": "bfloat16", "causal": True, **rows[name],
+              "hd": hd, "dtype": "bfloat16", "causal": True,
+              "design": FLASH_DESIGN[name], **rows[name],
               "plain": "reference_flash_attention in bf16"
                        + ("" if fwd else ": its backward, dq dk dv together"),
-              "library": "F.scaled_dot_product_attention(is_causal=True) "
+              "library": "F.scaled_dot_product_attention(is_causal=True), "
+                         f"backend {yardstick}, "
                          + ("forward" if fwd else
                             "backward, dq dk dv together")
                          + " (yardstick only)",
-              "share_of_bound": bound_ms / ms[name]})
+              "library_by_backend": {n: r[0 if fwd else 1]
+                                     for n, r in lib.items()},
+              **({} if fwd else {"library_bwd_check": lib_bwd_check}),
+              "share_of_bound": rows[name]["bound_ms"] / rows[name]["ms"]})
     return rows
 
 
@@ -1016,19 +1215,19 @@ def phase_timing(seed):
         qd = case["q"][:, :, None, :]
         mask = (torch.arange(Mp, device="cuda")[None, None, None, :]
                 <= case["offsets"].long()[:, None, None, None])
-        ms = timer.ms(lambda: paged_attention(**case))
-        plain_ms = timer.ms(lambda: reference_paged_attention(**case))
-        library_ms = timer.ms(lambda: F.scaled_dot_product_attention(
-            qd, kd, vd, attn_mask=mask))
-        bound_ms, bound_by = paged_bound(case)
+        times = timed_row(
+            timer.stats(lambda: paged_attention(**case)),
+            timer.stats(lambda: reference_paged_attention(**case)),
+            timer.stats(lambda: F.scaled_dot_product_attention(
+                qd, kd, vd, attn_mask=mask)),
+            paged_bound(case))
         row = {"shape": label, "B": B, "H": 12, "Hkv": 12, "hd": 64,
-               "bs": 32, "offsets": off, "dtype": "bfloat16", "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "library_ms": library_ms,
+               "bs": 32, "offsets": off, "dtype": "bfloat16", **times,
                "library": "F.scaled_dot_product_attention on the "
                           "pre-gathered strip (yardstick only)",
-               "achieved_GBps": bound_ms / ms * HBM_BYTES_PER_S / 1e9
-               if bound_by == "bytes" else None}
+               "achieved_GBps": times["bound_ms"] / times["ms"]
+               * HBM_BYTES_PER_S / 1e9
+               if times["bound_by"] == "bytes" else None}
         emit({"phase": "timing", **row})
         rows.append(row)
     return rows
@@ -1329,12 +1528,12 @@ def phase_lstm_timing(seed):
         _, cs, gates, _, _ = lstm_fwd(xp, w, h0, c0)
         wT, cprev = lstm_residuals(c0, cs, w)
         res = (wT, gates, cs, cprev, dys, dhT, dcT)
-        ms = {"lstm_fwd": timer.ms(lambda: lstm_fwd(xp, w, h0, c0)),
-              "lstm_bwd": timer.ms(lambda: lstm_bwd(*res))}
-        plain = {"lstm_fwd": timer.ms(lambda: reference_lstm_fwd(
+        st = {"lstm_fwd": timer.stats(lambda: lstm_fwd(xp, w, h0, c0)),
+              "lstm_bwd": timer.stats(lambda: lstm_bwd(*res))}
+        plain = {"lstm_fwd": timer.stats(lambda: reference_lstm_fwd(
                      xp, w, h0, c0), reps=5),
-                 "lstm_bwd": timer.ms(lambda: reference_lstm_bwd(*res),
-                                      reps=5)}
+                 "lstm_bwd": timer.stats(lambda: reference_lstm_bwd(*res),
+                                         reps=5)}
         # layer-level yardstick the port never calls: cuDNN's LSTM in bf16
         # on the same layer, which also does the input projection
         lstm = torch.nn.LSTM(I, H, batch_first=True).cuda().to(
@@ -1344,21 +1543,19 @@ def phase_lstm_timing(seed):
         hc = (h0[None].to(torch.bfloat16), c0[None].to(torch.bfloat16))
         wrt = [x] + list(lstm.parameters())
         with torch.no_grad():
-            lib_fwd = timer.ms(lambda: lstm(x, hc))
+            lib_fwd = timer.stats(lambda: lstm(x, hc))
         out = lstm(x, hc)[0]
         gy = torch.randn_like(out)
-        lib_bwd = timer.ms(lambda: torch.autograd.grad(
+        lib_bwd = timer.stats(lambda: torch.autograd.grad(
             out, wrt, gy, retain_graph=True))
-        lib_fwd_bwd = timer.ms(lambda: torch.autograd.grad(
+        lib_fwd_bwd = timer.stats(lambda: torch.autograd.grad(
             lstm(x, hc)[0], wrt, gy))
         library = {"lstm_fwd": lib_fwd, "lstm_bwd": lib_bwd}
-        for name in ms:
-            bound_ms, bound_by = lstm_bound(B, T, H, name)
-            row = {"ms": ms[name], "plain_ms": plain[name],
-                   "bound_ms": bound_ms, "bound_by": bound_by,
-                   "library_ms": library[name]}
+        for name in st:
+            row = timed_row(st[name], plain[name], library[name],
+                            lstm_bound(B, T, H, name))
             emit({"phase": "timing", "kernel": name, "B": B, "T": T, "H": H,
-                  **row, "ms_per_step": ms[name] / T,
+                  **row, "ms_per_step": row["ms"] / T,
                   "plain": ("reference_lstm_fwd" if name == "lstm_fwd"
                             else "reference_lstm_bwd") + " on the card",
                   "library": f"torch.nn.LSTM({I}, {H}) bf16 (cuDNN), "
@@ -1366,8 +1563,8 @@ def phase_lstm_timing(seed):
                                 "backward alone")
                              + "; layer-level yardstick: it also does the "
                                "input projection",
-                  "library_fwd_bwd_ms": lib_fwd_bwd,
-                  "share_of_bound": bound_ms / ms[name]})
+                  "library_fwd_bwd_ms": lib_fwd_bwd["ms"],
+                  "share_of_bound": row["bound_ms"] / row["ms"]})
             if H == 1150:   # the main path's widest layers
                 rows[name] = row
     return rows
@@ -1574,6 +1771,7 @@ def phase_t5_timing(seed):
     """K1-K4 at the T5 encoder's shape (bf16 B 16, H 12, T 512, hd 64,
     bidirectional, key mask of lengths 384-512, bias, dropout 0.1)."""
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
 
     from neuralnetworklibrary_tpu_torch.ops.flash_attention import (
         flash_bwd_dbias,
@@ -1599,57 +1797,154 @@ def phase_t5_timing(seed):
     delta = ((do.float() * o.float()).sum(-1).transpose(1, 2)
              .reshape(B * H, T).contiguous())
     args = (q, k, v, do, lse, delta, scale, 0, rate, dseed)
-    ms = {"flash_fwd": timer.ms(lambda: flash_fwd(
+    st = {"flash_fwd": timer.stats(lambda: flash_fwd(
               q, k, v, scale, 0, rate, dseed, **kw)),
-          "flash_bwd_dq": timer.ms(lambda: flash_bwd_dq(*args, **kw)),
-          "flash_bwd_dkv": timer.ms(lambda: flash_bwd_dkv(*args, **kw)),
-          "flash_bwd_dbias": timer.ms(lambda: flash_bwd_dbias(*args, **kw))}
+          "flash_bwd_dq": timer.stats(lambda: flash_bwd_dq(*args, **kw)),
+          "flash_bwd_dkv": timer.stats(lambda: flash_bwd_dkv(*args, **kw)),
+          "flash_bwd_dbias": timer.stats(lambda: flash_bwd_dbias(*args,
+                                                                 **kw))}
 
-    def fwd_bwd_ms(fn):
-        """Forward alone, and the backward alone (dq dk dv dbias together)
-        on a retained graph."""
-        qg, kg, vg, bg = (t.detach().requires_grad_()
-                          for t in (q, k, v, bias))
-        fwd = timer.ms(lambda: fn(qg, kg, vg, bg), reps=10)
-        out = fn(qg, kg, vg, bg)
-        bwd = timer.ms(lambda: torch.autograd.grad(
-            out, (qg, kg, vg, bg), do, retain_graph=True), reps=10)
-        return fwd, bwd
-
-    plain_fwd, plain_bwd = fwd_bwd_ms(
-        lambda a, b, c, bb: reference_flash_attention(
+    # the plain version, and as a yardstick only, never called by the
+    # port: SDPA's memory-efficient backend with the bias and the key mask
+    # as one float attn_mask that requires grad (its own dropout); forward
+    # alone and backward alone (dq dk dv dbias together), by device time
+    plain_fwd, plain_bwd, _ = sdpa_fwd_bwd(
+        timer, lambda a, b, c, bb: reference_flash_attention(
             a, b, c, scale, causal=False, dropout=rate, dropout_seed=dseed,
-            bias=bb, kv_mask=mask))
-    # yardstick only, never called by the port: SDPA with the bias and the
-    # key mask as one float attn_mask that requires grad (its own dropout)
-    lib_fwd, lib_bwd = fwd_bwd_ms(
-        lambda a, b, c, bb: F.scaled_dot_product_attention(
+            bias=bb, kv_mask=mask), (q, k, v, bias), do, None)
+    lib_fwd, lib_bwd, lib_bwd_check = sdpa_fwd_bwd(
+        timer, lambda a, b, c, bb: F.scaled_dot_product_attention(
             a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2),
             attn_mask=(bb[None] + kvm[:, None, None, :]).to(a.dtype),
-            dropout_p=rate).transpose(1, 2))
+            dropout_p=rate).transpose(1, 2),
+        (q, k, v, bias), do, SDPBackend.EFFICIENT_ATTENTION)
     rows = {}
-    for name in ms:
-        bound_ms, bound_by = flash_bound(B, T, H, hd, name, causal=False,
-                                         bias=True, mask=True)
+    for name in st:
         fwd = name == "flash_fwd"
-        rows[name] = {
-            "ms": ms[name], "plain_ms": plain_fwd if fwd else plain_bwd,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_fwd if fwd else lib_bwd}
+        rows[name] = timed_row(st[name], plain_fwd if fwd else plain_bwd,
+                               lib_fwd if fwd else lib_bwd,
+                               flash_bound(B, T, H, hd, name, causal=False,
+                                           bias=True, mask=True))
         emit({"phase": "timing", "kernel": name, "shape": "t5_encoder",
               "B": B, "T": T, "H": H, "hd": hd, "dtype": "bfloat16",
               "causal": False, "bias": True, "kv_mask": "lengths 384-512",
-              "dropout": rate, **rows[name],
+              "dropout": rate, "design": FLASH_DESIGN[name], **rows[name],
               "plain": "reference_flash_attention in bf16"
                        + ("" if fwd else
                           ": its backward, dq dk dv dbias together"),
               "library": "F.scaled_dot_product_attention with the bias + "
                          "key mask as a float attn_mask requiring grad, "
+                         "backend EFFICIENT_ATTENTION, "
                          + ("forward" if fwd else
                             "backward, dq dk dv dbias together")
                          + " (yardstick only)",
-              "share_of_bound": bound_ms / ms[name]})
+              **({} if fwd else {"library_bwd_check": lib_bwd_check}),
+              "share_of_bound": rows[name]["bound_ms"] / rows[name]["ms"]})
     return rows
+
+
+def tc_smem_bytes(hd, tile, stages, n_stationary):
+    """Shared memory of a tensor-core flash kernel (TcSmem in the source)."""
+    halves = hd // 64
+    return (n_stationary * halves * 128 * 128 + stages * 2 * halves * tile
+            * 128 + 8 * (1 + 2 * stages) + 1024)
+
+
+def phase_tile_sweep(seed):
+    """K1 and K2 built with other key-tile widths and ring depths, each
+    timed at the GPT-2 and T5-encoder shapes at hd 64 and hd 128 (12 and 6
+    heads): the measurement behind the constants kKeyTile, kFwdStages and
+    kDqStages of csrc/flash_attention.cu.  Each variant is an edited copy
+    of the source, built into _build/ and loaded in place of the shipped
+    library for its timing only.  Variants whose ring does not fit in
+    shared memory are listed, not timed."""
+    import ctypes
+    import shutil
+    import subprocess as sp
+
+    from neuralnetworklibrary_tpu_torch.kernels import build
+    from neuralnetworklibrary_tpu_torch.ops import flash_attention as fa
+
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    names = ("kKeyTile", "kFwdStages", "kDqStages")
+    shipped = tuple(int(re.search(rf"constexpr int {n} = (\d+);", src)
+                        .group(1)) for n in names)
+    variants = [shipped] + [v for v in ((128, 3, 3), (64, 2, 2), (128, 2, 2),
+                                        (64, 4, 4)) if v != shipped]
+    procs = {}
+    for v in variants[1:]:
+        d = build.BUILD / ("sweep_%d_%d_%d" % v)
+        d.mkdir(parents=True, exist_ok=True)
+        shutil.copy(build.CSRC / "hopper.cuh", d / "hopper.cuh")
+        text = src
+        for n, old, new in zip(names, shipped, v):
+            line = f"constexpr int {n} = {old};"
+            if text.count(line) != 1:
+                fail(f"tile sweep: {line!r} is not in the source once")
+            text = text.replace(line, f"constexpr int {n} = {new};")
+        (d / "flash_attention.cu").write_text(text)
+        procs[v] = sp.Popen([build.nvcc(), *build.FLAGS, "-o",
+                             str(d / "lib.so"), str(d / "flash_attention.cu")],
+                            stdout=sp.PIPE, stderr=sp.STDOUT, text=True)
+    libs = {shipped: fa._lib()}
+    reports = {}
+    for v, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"tile sweep variant {v} did not build:\n{log[-3000:]}")
+        libs[v] = ctypes.CDLL(str(build.BUILD / ("sweep_%d_%d_%d" % v)
+                                  / "lib.so"))
+        for n, (argtypes, restype) in fa.SIGNATURES.items():
+            fn = getattr(libs[v], n)
+            fn.argtypes, fn.restype = argtypes, restype
+        reports[v] = {k: r for k, r in ptxas_report(log).items()
+                      if "_tc_kernel" in k}
+
+    # K2's inputs come from the shipped K1
+    rng = np.random.default_rng(seed + 13)
+    timer = Timer()
+    shapes = {}
+    for hd in (64, 128):
+        H = 768 // hd
+        for name, B, T, opt, kw in (
+                ("gpt2", 8, 1024, (0, 0.0, 0), dict(causal=True)),
+                ("t5", 16, 512, (0, 0.1, 77), dict(causal=False))):
+            q, k, v, do = flash_case(rng, B, T, H, hd, torch.bfloat16)
+            if name == "t5":
+                kw["bias"] = torch.from_numpy(rng.standard_normal(
+                    (H, T, T), dtype=np.float32) * 0.5).cuda()
+                kw["kvm"] = additive_mask((torch.arange(T)[None, :]
+                                           < torch.from_numpy(rng.integers(
+                                               384, T + 1, B))[:, None])
+                                          .cuda())
+            o, lse = fa.flash_fwd(q, k, v, hd ** -0.5, *opt, **kw)
+            delta = ((do.float() * o.float()).sum(-1).transpose(1, 2)
+                     .reshape(B * H, T).contiguous())
+            shapes[f"{name}_hd{hd}"] = ((q, k, v, do, lse, delta,
+                                         hd ** -0.5), opt, kw)
+    lib_of = fa._lib
+    try:
+        for var in variants:
+            fa._lib = lambda lib=libs[var]: lib
+            times = {}
+            for shape, (args, opt, kw) in shapes.items():
+                hd = args[0].shape[3]
+                q, k, v = args[:3]
+                times[shape] = {
+                    "flash_fwd": timer.stats(lambda: fa.flash_fwd(
+                        q, k, v, args[-1], *opt, **kw))
+                    if tc_smem_bytes(hd, var[0], var[1], 1) <= 232448
+                    else "does not fit in shared memory",
+                    "flash_bwd_dq": timer.stats(lambda: fa.flash_bwd_dq(
+                        *args, *opt, **kw))
+                    if tc_smem_bytes(hd, var[0], var[2], 2) <= 232448
+                    else "does not fit in shared memory"}
+            emit({"phase": "tile_sweep", "key_tile": var[0],
+                  "fwd_stages": var[1], "dq_stages": var[2],
+                  "shipped": var == shipped, "times_ms": times,
+                  "ptxas": reports.get(var, "as in the build phase")})
+    finally:
+        fa._lib = lib_of
 
 
 def main():
@@ -1658,6 +1953,9 @@ def main():
     ap.add_argument("--profile", action="store_true",
                     help="also print device time by kernel of a serve "
                          "run and of a train step of each model")
+    ap.add_argument("--tile-sweep", action="store_true",
+                    help="also time K1 and K2 built with other key-tile "
+                         "widths and ring depths")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1673,6 +1971,7 @@ def main():
     phase_build()
     main_err = phase_kernel(args.seed)
     flash_err = phase_flash_kernel(args.seed)
+    edge_err = phase_flash_edges(args.seed)
     launches = phase_serve(args.seed, args.profile)
     flash_launches = phase_train(args.seed, args.profile)
     lstm_err = phase_lstm_kernel(args.seed)
@@ -1683,13 +1982,14 @@ def main():
     flash_t = phase_flash_timing(args.seed)
     lstm_t = phase_lstm_timing(args.seed)
     t5_t = phase_t5_timing(args.seed)
+    if args.tile_sweep:
+        phase_tile_sweep(args.seed)
     kernels = [{
         "name": "paged_attention", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": launches,
+        "design": "SIMT f32", "replaces": REPLACES, "launches": launches,
         "max_abs_err": main_err, "max_err": main_err,
-        "tol": TOL[torch.bfloat16], "ms": t["ms"],
-        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": t["library_ms"]}]
+        "tol": TOL[torch.bfloat16],
+        **{k: t[k] for k in TIMED_KEYS}}]
     # K1-K3: the numbers at the GPT-2 train shape, and at the T5 encoder's
     # beside them; launches over both training paths.  K4 runs on the T5
     # path alone.
@@ -1701,10 +2001,11 @@ def main():
         tol = (DBIAS_TOL if dbias else FLASH_TOL)[torch.bfloat16]
         kernels.append({
             "name": name, "route": "cuda", "source": FLASH_SOURCE,
-            "replaces": FLASH_REPLACES[name],
+            "design": FLASH_DESIGN[name], "replaces": FLASH_REPLACES[name],
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": (t5_err[name] if dbias else
-                            max(flash_err[name], t5_err[name])),
+                            max(flash_err[name], t5_err[name],
+                                edge_err.get(name, 0.0))),
             "tol": ("atol %g x max|ref| + rtol %g + bf16 delta slack"
                     if dbias else "atol %g + rtol %g") % tol,
             "shape": "t5_encoder" if dbias else "gpt2_train", **row,
@@ -1713,7 +2014,7 @@ def main():
         kind = name.split("_")[1]
         kernels.append({
             "name": name, "route": "cuda", "source": LSTM_SOURCE,
-            "replaces": LSTM_REPLACES[name],
+            "design": "SIMT f32", "replaces": LSTM_REPLACES[name],
             "launches": lstm_launches[name], "max_abs_err": lstm_err[name],
             "tol": "atol %g + rtol %g" % LSTM_TOL[kind], **row})
     emit({"kernels": kernels})

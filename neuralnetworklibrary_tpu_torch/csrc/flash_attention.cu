@@ -3,18 +3,19 @@
 //
 // Replaces the four TPU kernels of
 // neuralnetworklibrary_tpu/ops/flash_attention.py (Pallas):
-//   flash_fwd_kernel       <- _fwd_kernel       (K1): o and the row logsumexp
-//   flash_bwd_dq_kernel    <- _bwd_dq_kernel    (K2): dq by a loop over key
-//                                                     tiles
-//   flash_bwd_dkv_kernel   <- _bwd_dkv_kernel   (K3): dk, dv by a loop over
-//                                                     query tiles
-//   flash_bwd_dbias_kernel <- _bwd_dbias_kernel (K4): dbias = sum over the
-//                                                     batch of dS
-// The (T, T) score matrix is never written: each block holds one 64-row
-// tile of its own side and streams 64-row tiles of the other side through
-// shared memory, with the online softmax (m, l) in the forward and
-// p = exp(s - lse) recomputed from the saved logsumexp in the backward.
-// delta = rowsum(dO * O) is computed outside, as the JAX package does.
+//   K1 <- _fwd_kernel (:119): o and the row logsumexp
+//        bf16: flash_fwd_tc_kernel (tensor cores); float32: flash_fwd_kernel
+//   K2 <- _bwd_dq_kernel (:275): dq by a loop over key tiles
+//        bf16: flash_bwd_dq_tc_kernel; float32: flash_bwd_dq_kernel
+//   K3 <- _bwd_dkv_kernel (:338): dk, dv by a loop over query tiles
+//        flash_bwd_dkv_kernel, both types
+//   K4 <- _bwd_dbias_kernel (:419): dbias = sum over the batch of dS
+//        flash_bwd_dbias_kernel, both types
+// The (T, T) score matrix is never written: each block holds a tile of its
+// own side and streams tiles of the other side through shared memory,
+// with the online softmax (m, l) in the forward and p = exp(s - lse)
+// recomputed from the saved logsumexp in the backward.  delta = rowsum(dO
+// * O) is computed outside, as the JAX package does.
 //
 // Options, as in the Pallas kernels: causal or bidirectional (causal = 0:
 // every key tile of every row); a causal window; a batch-shared float32
@@ -29,31 +30,35 @@
 // mask (B, T) float32.  The flat index bh = b*H + h is the JAX kernels'
 // program_id(0), and the dropout hash takes it as its batch index.
 //
-// What bounds it: at the training shape (T 1024, hd 64) the causal work is
-// about 4*T*T/2*hd flops per head against (4 or 8)*T*hd elements moved, far
-// above the card's ~300 flops per byte, so the tensor cores' rate bounds it.
-// This first version does not reach them: it multiplies in float32 on the
-// CUDA cores from shared memory, so shared-memory loads bound it instead.
-// K4 does 4*hd flops per (query, key) pair per batch row against the bias
-// read and the dbias write, (H, T, T) float32 each: tensor-core bound too.
+// What bounds them: at the GPT-2 training shape (B 8, H 12, T 1024, hd 64,
+// causal) K1 does 12.9 GFLOP against 50 MB (0.013 ms of bf16 tensor-core
+// work, 0.015 ms of HBM), K2 19.3 GFLOP against 64 MB (0.020 / 0.019 ms),
+// K3 25.8 GFLOP: far above the card's ~300 flops per byte, so the tensor
+// cores bound them.  At the T5 encoder's (B 16, T 512, bidirectional, key
+// mask, f32 bias) the bias read makes K1-K4 byte-bound (0.019-0.027 ms).
+// K4 does 4*hd flops per pair per batch row against the (H, T, T) bias
+// read and dbias write.
 //
-// Design (simple first version):
-// - one block of 256 threads per (tile of 64 rows, bh).  Thread (ty, tx) of
-//   a 16 x 16 grid owns rows ty*4 .. ty*4+3 and columns tx, tx+16, ...,
-//   so every tile product is the same register-blocked loop (mma_tile);
-// - tiles sit in shared memory as float32 [row][d] with a row stride of
-//   hd+1 (and 65 for the 64 x 64 probability tiles).  That stride is 1 mod
-//   32, so every read of the products below is free of bank conflicts;
+// Two designs:
+// - K1, K2 on bf16 (the training paths' type): tensor cores (wgmma) fed by
+//   TMA through an mbarrier ring, warp-specialised, below ("K1, K2 on
+//   tensor cores").
+// - K1, K2 on float32 and K3, K4 on both types: the first, simple design,
+//   float32 on the CUDA cores, so shared-memory loads bound it.  One block
+//   of 256 threads per (tile of 64 rows, bh); thread (ty, tx) of a 16 x 16
+//   grid owns rows ty*4 .. ty*4+3 and columns tx, tx+16, ..., so every
+//   tile product is the same register-blocked loop (mma_tile); tiles sit
+//   in shared memory as float32 [row][d] with a row stride of hd+1 (and 65
+//   for the 64 x 64 probability tiles), 1 mod 32, so the products' reads
+//   are free of bank conflicts.  K4 runs one block per (key tile, query
+//   tile, head) and loops over the batch inside the block, summing one
+//   64 x 64 float32 tile in registers and writing it once: no atomics and
+//   no zeroing pass; a tile the causal band skips is written as 0.
+// Common to both:
 // - causal tiles above the diagonal are skipped by the loop bounds, and a
-//   window starts (K1, K2) or ends (K3) the loop at its band, as first_j and
-//   n_q do in the Pallas kernels; rows at or past T are masked, so T needs
-//   no padding;
-// - K4 runs one block per (key tile, query tile, head) and loops over the
-//   batch inside the block, summing one 64 x 64 float32 tile in registers
-//   and writing it once: no atomics (the result is deterministic) and no
-//   zeroing pass.  A tile the causal band skips is written as 0.  The TPU
-//   kernel instead accumulates across a sequential batch grid axis, which
-//   blocks that run in no order cannot do;
+//   window starts (K1, K2) or ends (K3) the loop at its band, as first_j
+//   and n_q do in the Pallas kernels; rows at or past T are masked, so T
+//   needs no padding;
 // - a row whose every key is masked saves lse = -1e30 (m + log l rounds to
 //   m in float32), so the backward cannot take p = exp(s - lse) there: it
 //   gives such a row its forward's uniform p = 1/n over its n attended
@@ -65,13 +70,15 @@
 //   normalizer l sums the undropped probabilities; only the value
 //   accumulation sees the mask, scaled by 1/(1 - rate).
 //
-// Later work: bf16 tiles into wgmma (or mma.sync) with TMA staging, which
-// is what the tensor-core bound asks for; native GQA (read Hkv heads);
-// q_start and sink.
+// Later work: K3 and K4 on the tensor cores (dbias folded into the dkv
+// pass); a persistent grid; fp8; native GQA (read the Hkv heads through
+// the tensor maps); q_start and sink.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -97,19 +104,33 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// The keep decision of _drop_keep (flash_attention.py:84) for one
-// (seed, bh, query position, key position).
-__device__ __forceinline__ bool drop_keep(uint32_t seed, uint32_t bh,
-                                          uint32_t q, uint32_t k,
-                                          float rate) {
-  uint32_t x = (q * 2654435769u) ^ (k * 40503u) ^ (bh * 97531u) ^ seed;
+// The dropout hash of _drop_keep (flash_attention.py:84) in two parts: the
+// part of one (seed, bh, query position) row, then the keep decision for
+// key position k, u >= rate for u = (x & 0xFFFFFF) / 2**24, taken as the
+// exact integer test (x & 0xFFFFFF) >= ceil(rate * 2**24) (drop_thresh).
+__device__ __forceinline__ uint32_t drop_row(uint32_t seed, uint32_t bh,
+                                             uint32_t q) {
+  return (q * 2654435769u) ^ (bh * 97531u) ^ seed;
+}
+__device__ __forceinline__ uint32_t drop_thresh(float rate) {
+  return static_cast<uint32_t>(ceilf(rate * 16777216.0f));
+}
+__device__ __forceinline__ bool drop_keep_at(uint32_t row, uint32_t k,
+                                             uint32_t thresh) {
+  uint32_t x = row ^ (k * 40503u);
   x ^= x >> 16;
   x *= 2246822507u;  // int32 -2048144789
   x ^= x >> 13;
   x *= 3266489909u;  // int32 -1028477387
   x ^= x >> 16;
-  const float u = static_cast<float>(x & 0xFFFFFFu) * (1.0f / 16777216.0f);
-  return u >= rate;
+  return (x & 0xFFFFFFu) >= thresh;
+}
+
+// The keep decision for one (seed, bh, query position, key position).
+__device__ __forceinline__ bool drop_keep(uint32_t seed, uint32_t bh,
+                                          uint32_t q, uint32_t k,
+                                          float rate) {
+  return drop_keep_at(drop_row(seed, bh, q), k, drop_thresh(rate));
 }
 
 // Sum / max over the 16 lanes that share a row (tx = lane & 15).
@@ -662,6 +683,731 @@ __global__ void drop_keep_kernel(const int32_t* __restrict__ seeds,
   }
 }
 
+// ================================================= K1, K2 on tensor cores
+//
+// bf16 only.  One block of three warpgroups per (128 query rows, bh):
+// warpgroup 0 is the producer (its registers given to the others with
+// setmaxnreg; one thread issues every TMA load), warpgroups 1 and 2 are
+// consumers of 64 query rows each.  The query side (q; q and dO in K2)
+// is loaded once by TMA; key tiles of BK rows (k and v) stream through a
+// ring of STAGES stages guarded by full/empty mbarriers.  Both products
+// of a key tile are wgmma: S = Q K^T (and dP = dO V^T in K2) with both
+// operands in shared memory, then O += P V (dQ += dS K) with P (dS) packed
+// to bf16 in registers as the A operand and the key tile, MN-major, as B.
+// Everything between the products (masks, bias, key mask, dropout, the
+// online softmax or the gradient of one pair) works on the f32
+// accumulator registers, each at its (row, column) of the accumulator
+// layout (hopper.cuh).  The arithmetic of one pair is the SIMT kernels':
+// the score is scaled in f32 after the product, then the bias and the
+// additive key mask are added; p is rounded to bf16 only as the operand
+// of the second product, after dropout, as the JAX kernel does.
+//
+// Each kernel is built twice: OPT = false for no bias, no key mask and
+// no dropout (GPT-2 training), true otherwise.  Per key tile, a consumer
+// takes the EDGE path (the position test on every pair) only where its
+// rows and the tile cross the causal diagonal, the window's edge or T.
+
+using namespace nnl_hopper;
+
+constexpr int kRowsTC = 128;           // query rows of a block
+constexpr int kThreadsTC = 384;        // producer + two consumer warpgroups
+constexpr int kHalfRow = 128;          // bytes of 64 bf16 columns
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Key-tile width and ring depths (chosen by measurement at hd 64 and 128,
+// PERF.md).  K1 overlaps the softmax of tile j with O += P V of tile
+// j - 1, so it holds two stages at once and a third loads ahead; K2 holds
+// tile j - 1 until its dQ product, issued last, has read it.
+constexpr int kKeyTile = 64;
+constexpr int kFwdStages = 3;
+constexpr int kDqStages = 3;
+
+// Shared memory of a kernel with NQ stationary 128-row tensors and a ring
+// of STAGES BK-row key tiles (k and v): byte offsets, tiles 1024-aligned.
+template <int HD, int BK, int NQ, int STAGES>
+struct TcSmem {
+  static constexpr int kNH = HD / 64;                  // 64-column halves
+  static constexpr int kQ = kNH * kRowsTC * kHalfRow;  // one stationary
+  static constexpr int kKV = kNH * BK * kHalfRow;      // one key tile
+  static constexpr int kRing = NQ * kQ;
+  static constexpr int kBars = kRing + STAGES * 2 * kKV;
+  // q_full, full[STAGES], empty[STAGES]; 1024 of slack to align the base
+  static constexpr size_t kBytes = kBars + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~static_cast<uintptr_t>(1023));
+}
+
+// The key tiles [*j_begin, *j_end] (width BK) that query rows q0 ..
+// q0 + rows - 1 visit (key_tiles for any tile widths).
+template <int BK>
+__device__ __forceinline__ void key_range(int q0, int rows, int Tn,
+                                          int causal, int window,
+                                          int* j_begin, int* j_end) {
+  *j_begin = 0;
+  *j_end = (Tn - 1) / BK;
+  if (causal) {
+    *j_end = min(Tn - 1, q0 + rows - 1) / BK;
+    if (window > 0) *j_begin = max(0, q0 - window + 1) / BK;
+  }
+}
+
+// Whether every pair of query rows qc0 .. qc0 + 63 and key tile k0 is
+// attended by position, so the per-pair position test can be skipped.
+template <int BK>
+__device__ __forceinline__ bool interior(int qc0, int k0, int Tn,
+                                        int causal, int window) {
+  if (k0 + BK > Tn || qc0 + 64 > Tn) return false;
+  return !causal ||
+         (k0 + BK - 1 <= qc0 && (window <= 0 || qc0 + 63 - k0 < window));
+}
+
+template <int STAGES>
+__device__ __forceinline__ void tc_init_barriers(uint64_t* bars) {
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);  // q_full: the producer's expect_tx
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bars + 1 + s, 1);           // full[s]
+      mbar_init(bars + 1 + STAGES + s, 8);  // empty[s]: each consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+}
+
+// The producer thread: the stationary tensors' 128 rows at q0 (NQ maps),
+// then key tiles j_begin .. j_end of k and v into the ring.
+template <int HD, int BK, int NQ, int STAGES>
+__device__ __forceinline__ void tc_produce(
+    uint8_t* sm, uint64_t* bars, const CUtensorMap* const (&stat)[NQ],
+    const CUtensorMap* tm_k, const CUtensorMap* tm_v, int q0, int j_begin,
+    int j_end, int h, int b) {
+  using L = TcSmem<HD, BK, NQ, STAGES>;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + STAGES;
+#pragma unroll
+  for (int n = 0; n < NQ; ++n) prefetch_map(stat[n]);
+  prefetch_map(tm_k);
+  prefetch_map(tm_v);
+  mbar_expect_tx(bars, NQ * L::kQ);
+#pragma unroll
+  for (int n = 0; n < NQ; ++n)
+#pragma unroll
+    for (int hh = 0; hh < L::kNH; ++hh)
+      tma_load_4d(sm + n * L::kQ + hh * kRowsTC * kHalfRow, stat[n], bars,
+                  hh * 64, h, q0, b);
+  for (int j = j_begin, it = 0; j <= j_end; ++j, ++it) {
+    const int st = it % STAGES;
+    mbar_wait(&empty[st], ((it / STAGES) & 1) ^ 1);
+    mbar_expect_tx(&full[st], 2 * L::kKV);
+    uint8_t* kt = sm + L::kRing + st * 2 * L::kKV;
+#pragma unroll
+    for (int hh = 0; hh < L::kNH; ++hh) {
+      tma_load_4d(kt + hh * BK * kHalfRow, tm_k, &full[st], hh * 64, h,
+                  j * BK, b);
+      tma_load_4d(kt + L::kKV + hh * BK * kHalfRow, tm_v, &full[st], hh * 64,
+                  h, j * BK, b);
+    }
+  }
+}
+
+// A consumer's view of the ring: stage it % STAGES and its phase.
+template <int STAGES>
+struct Ring {
+  uint64_t* full;
+  uint64_t* empty;
+  __device__ __forceinline__ void wait(int it) const {
+    mbar_wait(&full[it % STAGES], (it / STAGES) & 1);
+  }
+  // One arrival per consumer warp: this warp is done with stage it.
+  __device__ __forceinline__ void release(int it) const {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[it % STAGES]);
+  }
+};
+
+// acc (64 x BK) = A (64 x HD) B^T for a stationary A at a_base (a 128-row
+// tile, this consumer's 64 rows in it) and the key tile at b_base, both
+// K-major halves.  Issued, not waited for.
+template <int HD, int BK>
+__device__ __forceinline__ void tc_scores(float (&acc)[BK / 2],
+                                          uint32_t a_base, uint32_t b_base) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t off = (kk & 3) * 32;
+    wgmma_ss<BK>(acc,
+                 desc_sw128(a_base + (kk >> 2) * kRowsTC * kHalfRow + off, 0,
+                            1024),
+                 desc_sw128(b_base + (kk >> 2) * BK * kHalfRow + off, 0,
+                            1024),
+                 kk > 0);
+  }
+}
+
+// acc (64 x HD) += A (64 x BK, bf16 registers) B for the key tile at
+// b_base read MN-major (its hd columns contiguous).  Issued, not waited.
+template <int HD, int BK>
+__device__ __forceinline__ void tc_accumulate(float (&acc)[HD / 64][32],
+                                              const uint32_t (&a)[BK / 16][4],
+                                              uint32_t b_base) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int hh = 0; hh < HD / 64; ++hh)
+      wgmma_rs_tb<64>(acc[hh], a[kk],
+                      desc_sw128(b_base + hh * BK * kHalfRow + kk * 2048,
+                                 BK * kHalfRow, 1024),
+                      1);
+}
+
+template <int HD>
+__device__ __forceinline__ void fence_acc(float (&acc)[HD / 64][32]) {
+#pragma unroll
+  for (int hh = 0; hh < HD / 64; ++hh) fence_regs(acc[hh]);
+}
+
+template <int N>
+__device__ __forceinline__ void fence_operand(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int k = 0; k < N; ++k)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[k][r])::"memory");
+}
+
+// Packs the f32 accumulator x (64 x BK) into BK / 16 bf16 A operands.
+template <int BK>
+__device__ __forceinline__ void pack_operand(const float (&x)[BK / 2],
+                                             uint32_t (&a)[BK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+}
+
+// Sum / max over the 4 lanes that share an accumulator row.
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+// What a consumer thread needs to place its accumulator entries: entry
+// i = 4 j + 2 r + e sits at query position ra + 8 r and key position
+// k0 + 8 j + cl + e of a tile starting at key k0.
+struct Pairs {
+  int ra, cl, Tn, causal, window;
+  float sm_scale;
+  const float* bias_h;  // this head's (T, T) bias, or null
+  const float* kvm_b;   // this batch row's (T) key mask, or null
+  bool bias_pairs;      // bias rows start 8-byte aligned (T even)
+  uint32_t drow[2];     // the dropout hash of each row (drop_row)
+  uint32_t thresh;      // drop_thresh(rate)
+  float inv_keep;
+  float rate;
+};
+
+__device__ __forceinline__ Pairs make_pairs(const Opts& op, int ra, int cl,
+                                            int Tn, int bh, int b, int h) {
+  Pairs px;
+  px.ra = ra;
+  px.cl = cl;
+  px.Tn = Tn;
+  px.causal = op.causal;
+  px.window = op.window;
+  px.sm_scale = op.sm_scale;
+  px.bias_h = op.bias ? op.bias + (size_t)h * Tn * Tn : nullptr;
+  px.kvm_b = op.kvm ? op.kvm + (size_t)b * Tn : nullptr;
+  px.bias_pairs = (Tn & 1) == 0;
+  px.drow[0] = drop_row(op.seed, bh, ra);
+  px.drow[1] = drop_row(op.seed, bh, ra + 8);
+  px.thresh = drop_thresh(op.rate);
+  px.inv_keep = op.rate > 0.f ? 1.f / (1.f - op.rate) : 1.f;
+  px.rate = op.rate;
+  return px;
+}
+
+// The bias and key mask of the two pairs (qp, kp), (qp, kp + 1) inside
+// the tile interior (both keys < T): *a0, *a1.
+__device__ __forceinline__ void logit_pair(const Pairs& px, int qp, int kp,
+                                           float kv0, float kv1, float* a0,
+                                           float* a1) {
+  float b0 = 0.f, b1 = 0.f;
+  if (px.bias_h) {
+    const float* row = px.bias_h + (size_t)qp * px.Tn + kp;
+    if (px.bias_pairs) {
+      const float2 bb = *reinterpret_cast<const float2*>(row);
+      b0 = bb.x;
+      b1 = bb.y;
+    } else {
+      b0 = row[0];
+      b1 = row[1];
+    }
+  }
+  *a0 = b0 + kv0;
+  *a1 = b1 + kv1;
+}
+
+// K1, one tile: s (64 x BK scores) becomes the scaled logits (bias and key
+// mask added, -inf where the position is not attended); mx gets each
+// row's max.
+template <int BK, bool OPT, bool EDGE>
+__device__ __forceinline__ void fwd_logits(float (&s)[BK / 2],
+                                           float (&mx)[2], int k0,
+                                           const Pairs& px) {
+  const float ninf = __int_as_float(0xff800000);
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    const int kp = k0 + 8 * j + px.cl;
+    float kv0 = 0.f, kv1 = 0.f;
+    if (OPT && !EDGE && px.kvm_b) {
+      kv0 = px.kvm_b[kp];
+      kv1 = px.kvm_b[kp + 1];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qp = px.ra + 8 * r;
+      const int i = 4 * j + 2 * r;
+      float x0 = s[i] * px.sm_scale, x1 = s[i + 1] * px.sm_scale;
+      if (EDGE) {
+        x0 = !attends(qp, kp, px.Tn, px.causal, px.window) ? ninf
+             : OPT ? x0 + logit_add(px.bias_h, px.kvm_b, qp, kp, px.Tn)
+                   : x0;
+        x1 = !attends(qp, kp + 1, px.Tn, px.causal, px.window) ? ninf
+             : OPT ? x1 + logit_add(px.bias_h, px.kvm_b, qp, kp + 1, px.Tn)
+                   : x1;
+      } else if (OPT) {
+        float a0, a1;
+        logit_pair(px, qp, kp, kv0, kv1, &a0, &a1);
+        x0 += a0;
+        x1 += a1;
+      }
+      s[i] = x0;
+      s[i + 1] = x1;
+      mx[r] = fmaxf(mx[r], fmaxf(x0, x1));
+    }
+  }
+}
+
+// K1, one tile: logits s become p = exp(s - m) for the rows' new maxima
+// m, summed (undropped) into psum; then the dropout keep mask scaled by
+// 1 / (1 - rate) when DROP.
+template <int BK, bool DROP>
+__device__ __forceinline__ void fwd_probs(float (&s)[BK / 2],
+                                          const float (&m)[2],
+                                          float (&psum)[2], int k0,
+                                          const Pairs& px) {
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    const int kp = k0 + 8 * j + px.cl;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * j + 2 * r + e;
+        float p = exp2f((s[i] - m[r]) * kLog2e);
+        psum[r] += p;
+        if (DROP)
+          p = drop_keep_at(px.drow[r], kp + e, px.thresh) ? p * px.inv_keep
+                                                          : 0.f;
+        s[i] = p;
+      }
+    }
+  }
+}
+
+// K1, one tile's softmax step on s: logits, the rows' new maxima, the
+// rescale alpha of the old sums, and p (dropped) in s; l updated.
+template <int BK, bool OPT>
+__device__ __forceinline__ void fwd_softmax(float (&s)[BK / 2], float (&m)[2],
+                                            float (&l)[2], float (&alpha)[2],
+                                            int k0, bool edge,
+                                            const Pairs& px) {
+  float mx[2] = {kNegInf, kNegInf};
+  if (edge)
+    fwd_logits<BK, OPT, true>(s, mx, k0, px);
+  else
+    fwd_logits<BK, OPT, false>(s, mx, k0, px);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m[r], quad_max(mx[r]));
+    alpha[r] = exp2f((m[r] - m_new) * kLog2e);
+    m[r] = m_new;
+  }
+  float psum[2] = {0.f, 0.f};
+  if (OPT && px.rate > 0.f)
+    fwd_probs<BK, true>(s, m, psum, k0, px);
+  else
+    fwd_probs<BK, false>(s, m, psum, k0, px);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + quad_sum(psum[r]);
+}
+
+// K2, one tile: s (scores) and dp (dO V^T) become dS = P (dP m - delta)
+// in s, m the dropout keep factor (1 / (1 - rate) or 0), and dS = 0 where
+// the pair is not attended or its key is masked; P is the forward's
+// probability (exp(s - lse), or 1/n for a fully masked row).
+template <int BK, bool OPT, bool EDGE, bool DROP>
+__device__ __forceinline__ void dq_grads(float (&s)[BK / 2],
+                                         const float (&dp)[BK / 2], int k0,
+                                         const Pairs& px,
+                                         const float (&lse)[2],
+                                         const float (&dl)[2],
+                                         const float (&inv_n)[2]) {
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    const int kp = k0 + 8 * j + px.cl;
+    float kv0 = 0.f, kv1 = 0.f;
+    if (OPT && !EDGE && px.kvm_b) {
+      kv0 = px.kvm_b[kp];
+      kv1 = px.kvm_b[kp + 1];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qp = px.ra + 8 * r;
+      const int i = 4 * j + 2 * r;
+      float add[2] = {0.f, 0.f};
+      float kv[2] = {kv0, kv1};
+      if (OPT && !EDGE) logit_pair(px, qp, kp, kv0, kv1, &add[0], &add[1]);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float ds = 0.f;
+        if (!EDGE || attends(qp, kp + e, px.Tn, px.causal, px.window)) {
+          float sc = s[i + e] * px.sm_scale;
+          if (OPT && EDGE) {
+            add[e] = logit_add(px.bias_h, px.kvm_b, qp, kp + e, px.Tn);
+            kv[e] = px.kvm_b ? px.kvm_b[kp + e] : 0.f;
+          }
+          if (OPT) sc += add[e];
+          float g = dp[i + e];
+          if (DROP)
+            g = drop_keep_at(px.drow[r], kp + e, px.thresh) ? g * px.inv_keep
+                                                            : 0.f;
+          const float p = OPT && fully_masked(lse[r])
+                              ? inv_n[r]
+                              : exp2f((sc - lse[r]) * kLog2e);
+          if (!OPT || kv[e] == 0.f) ds = p * (g - dl[r]);
+        }
+        s[i + e] = ds;
+      }
+    }
+  }
+}
+
+template <int BK, bool OPT>
+__device__ __forceinline__ void dq_grads_any(float (&s)[BK / 2],
+                                             const float (&dp)[BK / 2],
+                                             int k0, bool edge,
+                                             const Pairs& px,
+                                             const float (&lse)[2],
+                                             const float (&dl)[2],
+                                             const float (&inv_n)[2]) {
+  if (OPT && px.rate > 0.f) {
+    if (edge)
+      dq_grads<BK, OPT, true, true>(s, dp, k0, px, lse, dl, inv_n);
+    else
+      dq_grads<BK, OPT, false, true>(s, dp, k0, px, lse, dl, inv_n);
+  } else {
+    if (edge)
+      dq_grads<BK, OPT, true, false>(s, dp, k0, px, lse, dl, inv_n);
+    else
+      dq_grads<BK, OPT, false, false>(s, dp, k0, px, lse, dl, inv_n);
+  }
+}
+
+// Rows of a 64 x HD f32 accumulator (times scale per row) as bf16 at
+// out + (row position) * rs, rows at or past T skipped.  Row ra + 8 r.
+template <int HD>
+__device__ __forceinline__ void store_rows(const float (&acc)[HD / 64][32],
+                                           const float (&scale)[2],
+                                           __nv_bfloat16* out, size_t rs,
+                                           int ra, int cl, int Tn) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = ra + 8 * r;
+    if (qp >= Tn) continue;
+    __nv_bfloat16* row = out + (size_t)qp * rs;
+#pragma unroll
+    for (int hh = 0; hh < HD / 64; ++hh)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+        *reinterpret_cast<uint32_t*>(row + hh * 64 + 8 * jj + cl) =
+            pack_bf16(acc[hh][4 * jj + 2 * r] * scale[r],
+                      acc[hh][4 * jj + 2 * r + 1] * scale[r]);
+  }
+}
+
+// ---------------------------------------------------------------- K1
+//
+// Replaces _fwd_kernel (neuralnetworklibrary_tpu/ops/flash_attention.py
+// :119) for bf16.  Bound at the GPT-2 training shape (B 8, H 12, T 1024,
+// hd 64, causal): 12.9 GFLOP of tensor-core work (0.013 ms at 989 TFLOP/s)
+// against 50 MB moved (0.015 ms at 3.35 TB/s); at the T5 encoder's (B 16,
+// H 12, T 512, bidirectional, bias, key mask) the f32 bias read makes it
+// 0.019 ms of bytes.  Both products run on the tensor cores; the TMA ring
+// loads ahead; each consumer issues tile j's S = Q K^T together with tile
+// j - 1's O += P V and runs tile j's softmax while P V is on the tensor
+// cores (the two consumers overlap each other besides); the batch-shared
+// bias is read from L2.
+template <int HD, int BK, int STAGES, bool OPT>
+__global__ void __launch_bounds__(kThreadsTC, 1) flash_fwd_tc_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ lse, int Tn, int H, Opts op) {
+  using L = TcSmem<HD, BK, 1, STAGES>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L::kBars);
+
+  const int n_blk = (Tn + kRowsTC - 1) / kRowsTC;
+  const int q0 = (n_blk - 1 - (int)blockIdx.x) * kRowsTC;  // longest first
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  int j_begin, j_end;
+  key_range<BK>(q0, kRowsTC, Tn, op.causal, op.window, &j_begin, &j_end);
+  tc_init_barriers<STAGES>(bars);
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    regs_dealloc_24();
+    if (threadIdx.x == 0) {
+      const CUtensorMap* const stat[1] = {&tm_q};
+      tc_produce<HD, BK, 1, STAGES>(sm, bars, stat, &tm_k, &tm_v, q0,
+                                    j_begin, j_end, h, b);
+    }
+  } else {
+    regs_alloc_240();
+    const int c = wg - 1;
+    const int lane = threadIdx.x & 31;
+    const int qc0 = q0 + 64 * c;
+    const int ra = qc0 + 16 * ((threadIdx.x & 127) >> 5) + (lane >> 2);
+    const int cl = 2 * (lane & 3);
+    const Pairs px = make_pairs(op, ra, cl, Tn, bh, b, h);
+    const Ring<STAGES> ring{bars + 1, bars + 1 + STAGES};
+    const uint32_t q_base = smem_addr(sm) + c * 64 * kHalfRow;
+    const uint32_t kv0 = smem_addr(sm + L::kRing);
+    // this consumer's tiles: a contiguous part of the block's (none past T)
+    int jc_begin, jc_end;
+    key_range<BK>(qc0, 64, Tn, op.causal, op.window, &jc_begin, &jc_end);
+    if (qc0 >= Tn) jc_begin = j_end + 1;
+    const int it_begin = jc_begin - j_begin;
+    const int it_end = min(jc_end, j_end) - j_begin;  // inclusive
+    const int n_it = j_end - j_begin + 1;
+    for (int it = 0; it < min(it_begin, n_it); ++it) {
+      ring.wait(it);
+      ring.release(it);
+    }
+
+    float acc[HD / 64][32];
+#pragma unroll
+    for (int hh = 0; hh < HD / 64; ++hh)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[hh][i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    if (it_begin <= it_end) {
+      mbar_wait(bars, 0);
+      float s[BK / 2], alpha[2];
+      uint32_t pa[BK / 16][4];
+      // tile it_begin: S, softmax, P
+      ring.wait(it_begin);
+      wgmma_fence();
+      tc_scores<HD, BK>(s, q_base, kv0 + (it_begin % STAGES) * 2 * L::kKV);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      int k0 = (j_begin + it_begin) * BK;
+      fwd_softmax<BK, OPT>(s, m, l, alpha, k0,
+                           !interior<BK>(qc0, k0, Tn, op.causal, op.window),
+                           px);
+      pack_operand<BK>(s, pa);
+      for (int it = it_begin + 1; it <= it_end; ++it) {
+        // S of tile it and P V of tile it - 1 on the tensor cores, then
+        // the softmax of tile it beside the second
+        const uint32_t prev = kv0 + ((it - 1) % STAGES) * 2 * L::kKV;
+        ring.wait(it);
+        wgmma_fence();
+        tc_scores<HD, BK>(s, q_base, kv0 + (it % STAGES) * 2 * L::kKV);
+        wgmma_commit();
+        tc_accumulate<HD, BK>(acc, pa, prev + L::kKV);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(s);
+        k0 = (j_begin + it) * BK;
+        fwd_softmax<BK, OPT>(s, m, l, alpha, k0,
+                             !interior<BK>(qc0, k0, Tn, op.causal, op.window),
+                             px);
+        wgmma_wait<0>();
+        fence_acc<HD>(acc);
+        fence_operand(pa);
+        ring.release(it - 1);
+#pragma unroll
+        for (int hh = 0; hh < HD / 64; ++hh)
+#pragma unroll
+          for (int i = 0; i < 32; ++i) acc[hh][i] *= alpha[(i >> 1) & 1];
+        pack_operand<BK>(s, pa);
+      }
+      wgmma_fence();
+      tc_accumulate<HD, BK>(acc, pa,
+                            kv0 + (it_end % STAGES) * 2 * L::kKV + L::kKV);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc<HD>(acc);
+      ring.release(it_end);
+    }
+    for (int it = max(it_end + 1, it_begin); it < n_it; ++it) {
+      ring.wait(it);
+      ring.release(it);
+    }
+    if (qc0 < Tn) {
+      const size_t rs = (size_t)H * HD;
+      const float inv_l[2] = {l[0] > 0.f ? 1.f / l[0] : 0.f,
+                              l[1] > 0.f ? 1.f / l[1] : 0.f};
+      store_rows<HD>(acc, inv_l, o + (size_t)b * Tn * rs + (size_t)h * HD,
+                     rs, ra, cl, Tn);
+      if ((lane & 3) == 0) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          if (ra + 8 * r < Tn)
+            lse[(size_t)bh * Tn + ra + 8 * r] = m[r] + logf(l[r]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------- K2
+//
+// Replaces _bwd_dq_kernel (flash_attention.py:275) for bf16.  Bound at the
+// GPT-2 shape: 19.3 GFLOP (0.020 ms at 989 TFLOP/s; three products per
+// pair) against 64 MB (0.019 ms); at the T5 encoder's 0.023 ms of bytes
+// (the bias).  The same block and ring as K1: q and dO stay in shared
+// memory, the rows' lse and delta in registers; per key tile S and dP are
+// two shared-memory wgmmas, dS = P (dP - delta) is formed on their
+// registers and goes to
+// bf16 as the A operand of dQ += dS K (as the JAX kernel's
+// ds.astype(k.dtype)).  dq is its own kernel (no atomics), so it is
+// deterministic.
+template <int HD, int BK, int STAGES, bool OPT>
+__global__ void __launch_bounds__(kThreadsTC, 1) flash_bwd_dq_tc_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_do,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ lse,
+    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int Tn,
+    int H, Opts op) {
+  using L = TcSmem<HD, BK, 2, STAGES>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L::kBars);
+
+  const int n_blk = (Tn + kRowsTC - 1) / kRowsTC;
+  const int q0 = (n_blk - 1 - (int)blockIdx.x) * kRowsTC;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  int j_begin, j_end;
+  key_range<BK>(q0, kRowsTC, Tn, op.causal, op.window, &j_begin, &j_end);
+  tc_init_barriers<STAGES>(bars);
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    regs_dealloc_24();
+    if (threadIdx.x == 0) {
+      const CUtensorMap* const stat[2] = {&tm_q, &tm_do};
+      tc_produce<HD, BK, 2, STAGES>(sm, bars, stat, &tm_k, &tm_v, q0,
+                                    j_begin, j_end, h, b);
+    }
+  } else {
+    regs_alloc_240();
+    const int c = wg - 1;
+    const int lane = threadIdx.x & 31;
+    const int qc0 = q0 + 64 * c;
+    const int ra = qc0 + 16 * ((threadIdx.x & 127) >> 5) + (lane >> 2);
+    const int cl = 2 * (lane & 3);
+    const Pairs px = make_pairs(op, ra, cl, Tn, bh, b, h);
+    const Ring<STAGES> ring{bars + 1, bars + 1 + STAGES};
+    const uint32_t q_base = smem_addr(sm) + c * 64 * kHalfRow;
+    const uint32_t do_base = q_base + L::kQ;
+    const uint32_t kv0 = smem_addr(sm + L::kRing);
+    int jc_begin, jc_end;
+    key_range<BK>(qc0, 64, Tn, op.causal, op.window, &jc_begin, &jc_end);
+    if (qc0 >= Tn) jc_begin = j_end + 1;
+    const int it_begin = jc_begin - j_begin;
+    const int it_end = min(jc_end, j_end) - j_begin;  // inclusive
+    const int n_it = j_end - j_begin + 1;
+    for (int it = 0; it < min(it_begin, n_it); ++it) {
+      ring.wait(it);
+      ring.release(it);
+    }
+
+    float lse_r[2], dl_r[2], inv_n[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qp = ra + 8 * r;
+      lse_r[r] = qp < Tn ? lse[(size_t)bh * Tn + qp] : 0.f;
+      dl_r[r] = qp < Tn ? delta[(size_t)bh * Tn + qp] : 0.f;
+      inv_n[r] = OPT ? 1.f / n_attended(qp, Tn, op.causal, op.window) : 0.f;
+    }
+    float acc[HD / 64][32];
+#pragma unroll
+    for (int hh = 0; hh < HD / 64; ++hh)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[hh][i] = 0.f;
+
+    if (it_begin <= it_end) {
+      mbar_wait(bars, 0);
+      uint32_t da[BK / 16][4];
+      for (int it = it_begin; it <= it_end; ++it) {
+        // S and dP of tile it go to the tensor cores behind dQ of tile
+        // it - 1, which is waited for only here
+        const uint32_t k_base = kv0 + (it % STAGES) * 2 * L::kKV;
+        const int k0 = (j_begin + it) * BK;
+        float s[BK / 2], dp[BK / 2];
+        ring.wait(it);
+        wgmma_fence();
+        tc_scores<HD, BK>(s, q_base, k_base);
+        tc_scores<HD, BK>(dp, do_base, k_base + L::kKV);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+        if (it > it_begin) {
+          fence_acc<HD>(acc);
+          fence_operand(da);
+          ring.release(it - 1);
+        }
+        dq_grads_any<BK, OPT>(
+            s, dp, k0, !interior<BK>(qc0, k0, Tn, op.causal, op.window), px,
+            lse_r, dl_r, inv_n);
+        pack_operand<BK>(s, da);
+        wgmma_fence();
+        tc_accumulate<HD, BK>(acc, da, k_base);
+        wgmma_commit();
+      }
+      wgmma_wait<0>();
+      fence_acc<HD>(acc);
+      ring.release(it_end);
+    }
+    for (int it = max(it_end + 1, it_begin); it < n_it; ++it) {
+      ring.wait(it);
+      ring.release(it);
+    }
+    if (qc0 < Tn) {
+      const float scale[2] = {op.sm_scale, op.sm_scale};
+      const size_t rs = (size_t)H * HD;
+      store_rows<HD>(acc, scale, dq + (size_t)b * Tn * rs + (size_t)h * HD,
+                     rs, ra, cl, Tn);
+    }
+  }
+}
+
 template <typename Kern>
 int prepare(Kern kern, size_t smem) {
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
@@ -678,34 +1424,103 @@ dim3 grid_of(int B, int Tn, int H) {
   return dim3((Tn + kTile - 1) / kTile, B * H);
 }
 
-template <typename T, int HD>
-int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-        int B, int Tn, int H, Opts op, cudaStream_t stream) {
-  auto kern = op.bias || op.kvm ? flash_fwd_kernel<T, HD, true>
-                                 : flash_fwd_kernel<T, HD, false>;
+dim3 grid_tc(int B, int Tn, int H) {
+  return dim3((Tn + kRowsTC - 1) / kRowsTC, B * H);
+}
+
+// TMA reads 16-byte aligned rows only.
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+template <int HD>
+int fwd_simt(const void* q, const void* k, const void* v, void* o, void* lse,
+             int B, int Tn, int H, Opts op, cudaStream_t stream) {
+  auto kern = op.bias || op.kvm ? flash_fwd_kernel<float, HD, true>
+                                 : flash_fwd_kernel<float, HD, false>;
   const size_t smem = fwd_smem<HD>();
   if (int e = prepare(kern, smem)) return e;
   kern<<<grid_of(B, Tn, H), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), Tn, H, op);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD, int BK, int STAGES>
+int fwd_tc(const void* q, const void* k, const void* v, void* o, void* lse,
+           int B, int Tn, int H, Opts op, cudaStream_t stream) {
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  CUtensorMap mq, mk, mv;
+  if (int e = bthd_map(&mq, q, B, Tn, H, HD, kRowsTC)) return e;
+  if (int e = bthd_map(&mk, k, B, Tn, H, HD, BK)) return e;
+  if (int e = bthd_map(&mv, v, B, Tn, H, HD, BK)) return e;
+  auto kern = op.bias || op.kvm || op.rate > 0.f
+                  ? flash_fwd_tc_kernel<HD, BK, STAGES, true>
+                  : flash_fwd_tc_kernel<HD, BK, STAGES, false>;
+  const size_t smem = TcSmem<HD, BK, 1, STAGES>::kBytes;
+  if (int e = prepare(kern, smem)) return e;
+  kern<<<grid_tc(B, Tn, H), kThreadsTC, smem, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
       Tn, H, op);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int HD>
-int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-           const void* lse, const void* delta, void* dq, int B, int Tn,
-           int H, Opts op, cudaStream_t stream) {
-  auto kern = op.bias || op.kvm ? flash_bwd_dq_kernel<T, HD, true>
-                                 : flash_bwd_dq_kernel<T, HD, false>;
+template <int HD>
+int bwd_dq_simt(const void* q, const void* k, const void* v,
+                const void* dout, const void* lse, const void* delta,
+                void* dq, int B, int Tn, int H, Opts op,
+                cudaStream_t stream) {
+  auto kern = op.bias || op.kvm ? flash_bwd_dq_kernel<float, HD, true>
+                                 : flash_bwd_dq_kernel<float, HD, false>;
   const size_t smem = dq_smem<HD>();
   if (int e = prepare(kern, smem)) return e;
   kern<<<grid_of(B, Tn, H), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), Tn, H, op);
+      static_cast<float*>(dq), Tn, H, op);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD, int BK, int STAGES>
+int bwd_dq_tc(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, void* dq, int B, int Tn,
+              int H, Opts op, cudaStream_t stream) {
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  CUtensorMap mq, mdo, mk, mv;
+  if (int e = bthd_map(&mq, q, B, Tn, H, HD, kRowsTC)) return e;
+  if (int e = bthd_map(&mdo, dout, B, Tn, H, HD, kRowsTC)) return e;
+  if (int e = bthd_map(&mk, k, B, Tn, H, HD, BK)) return e;
+  if (int e = bthd_map(&mv, v, B, Tn, H, HD, BK)) return e;
+  auto kern = op.bias || op.kvm || op.rate > 0.f
+                  ? flash_bwd_dq_tc_kernel<HD, BK, STAGES, true>
+                  : flash_bwd_dq_tc_kernel<HD, BK, STAGES, false>;
+  const size_t smem = TcSmem<HD, BK, 2, STAGES>::kBytes;
+  if (int e = prepare(kern, smem)) return e;
+  kern<<<grid_tc(B, Tn, H), kThreadsTC, smem, stream>>>(
+      mq, mdo, mk, mv, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq), Tn,
+      H, op);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
+             int B, int Tn, int H, Opts op, cudaStream_t stream) {
+  return fwd_tc<HD, kKeyTile, kFwdStages>(q, k, v, o, lse, B, Tn, H, op,
+                                          stream);
+}
+
+template <int HD>
+int bwd_dq_bf16(const void* q, const void* k, const void* v,
+                const void* dout, const void* lse, const void* delta,
+                void* dq, int B, int Tn, int H, Opts op,
+                cudaStream_t stream) {
+  return bwd_dq_tc<HD, kKeyTile, kDqStages>(q, k, v, dout, lse, delta, dq, B,
+                                            Tn, H, op, stream);
 }
 
 template <typename T, int HD>
@@ -747,6 +1562,13 @@ Opts opts_of(const void* bias, const void* kvm, float sm_scale, int causal,
               sm_scale, causal, window, rate, static_cast<uint32_t>(seed)};
 }
 
+// Calls F<HD>(args...) for hd 64 / 128; anything else is
+// cudaErrorInvalidValue.
+#define NNL_FLASH_HD(F, hd, ...)                    \
+  if (hd == 64) return F<64>(__VA_ARGS__);          \
+  if (hd == 128) return F<128>(__VA_ARGS__);        \
+  return static_cast<int>(cudaErrorInvalidValue)
+
 // Calls F<T, HD>(args...) for dtype code 0 (float32) / 1 (bfloat16) and
 // hd 64 / 128; anything else is cudaErrorInvalidValue.
 #define NNL_FLASH_DISPATCH(F, dtype, hd, ...)                        \
@@ -766,13 +1588,21 @@ extern "C" {
 // mask (0 or -1e30) or null; causal 0 or 1; window > 0 only when causal.
 // seed is the int32 dropout seed (its bits), rate the dropout rate (0 =
 // none).  Each returns the cudaError_t of its launch (0 on success).
+// K1 and K2 run the tensor-core kernels on bfloat16 (whose q, k, v, do
+// must be 16-byte aligned) and the SIMT kernels on float32.
 int nnl_flash_fwd(const void* q, const void* k, const void* v,
                   const void* bias, const void* kvm, void* o, void* lse,
                   int B, int Tn, int H, int hd, float sm_scale, int causal,
                   int window, float rate, int seed, int dtype, void* stream) {
   const Opts op = opts_of(bias, kvm, sm_scale, causal, window, rate, seed);
-  NNL_FLASH_DISPATCH(fwd, dtype, hd, q, k, v, o, lse, B, Tn, H, op,
-                     static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    NNL_FLASH_HD(fwd_bf16, hd, q, k, v, o, lse, B, Tn, H, op, st);
+  }
+  if (dtype == 0) {
+    NNL_FLASH_HD(fwd_simt, hd, q, k, v, o, lse, B, Tn, H, op, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 int nnl_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -782,8 +1612,16 @@ int nnl_flash_bwd_dq(const void* q, const void* k, const void* v,
                      int window, float rate, int seed, int dtype,
                      void* stream) {
   const Opts op = opts_of(bias, kvm, sm_scale, causal, window, rate, seed);
-  NNL_FLASH_DISPATCH(bwd_dq, dtype, hd, q, k, v, dout, lse, delta, dq, B, Tn,
-                     H, op, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    NNL_FLASH_HD(bwd_dq_bf16, hd, q, k, v, dout, lse, delta, dq, B, Tn, H, op,
+                 st);
+  }
+  if (dtype == 0) {
+    NNL_FLASH_HD(bwd_dq_simt, hd, q, k, v, dout, lse, delta, dq, B, Tn, H, op,
+                 st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 int nnl_flash_bwd_dkv(const void* q, const void* k, const void* v,

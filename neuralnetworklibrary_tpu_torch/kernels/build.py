@@ -6,8 +6,9 @@ takes seconds).  Wrappers pass tensor pointers and the current stream as
 integers; their ``argtypes`` use ``ctypes.c_void_p`` for each pointer.
 
 A library is built at its first use in the process and rebuilt when its
-source is newer.  Nothing here runs at import time: the CPU tests import
-every module on a machine without nvcc.
+source, or any header under ``csrc/`` (``*.cuh``, which sources include),
+is newer.  Nothing here runs at import time: the CPU tests import every
+module on a machine without nvcc.
 """
 
 from __future__ import annotations
@@ -84,11 +85,21 @@ def build(names=None) -> dict:
     return results
 
 
+def stale(so: Path, src: Path) -> bool:
+    """Whether the library ``so`` is missing or older than its source
+    ``src`` or any ``*.cuh`` header beside it."""
+    if not so.is_file():
+        return True
+    newest = max(p.stat().st_mtime
+                 for p in [src, *src.parent.glob("*.cuh")])
+    return so.stat().st_mtime < newest
+
+
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if it is
-    missing or older than its source."""
+    :func:`stale`."""
     so, src = library_path(name), CSRC / f"{name}.cu"
-    if not so.is_file() or so.stat().st_mtime < src.stat().st_mtime:
+    if stale(so, src):
         build([name])
     return ctypes.CDLL(str(so))

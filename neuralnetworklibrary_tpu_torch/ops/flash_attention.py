@@ -9,7 +9,11 @@ the dq kernel (:func:`flash_bwd_dq`, ``_bwd_dq_kernel``), the dk/dv kernel
 (:func:`flash_bwd_dkv`, ``_bwd_dkv_kernel``) and, when a bias needs its
 gradient, the dbias kernel (:func:`flash_bwd_dbias`, ``_bwd_dbias_kernel``).
 The kernels take causal or bidirectional attention, a causal window, a
-batch-shared (H, T, T) logit bias and a (B, T) key mask.  On CPU tensors it
+batch-shared (H, T, T) logit bias and a (B, T) key mask.  On bfloat16 the
+forward and the dq kernel run on the tensor cores (wgmma, fed by TMA, so
+q, k, v and dO must start on 16-byte boundaries); on float32, and for
+dk/dv and dbias on both types, the kernels compute in float32 on the CUDA
+cores.  A kernel that fails to build or launch raises.  On CPU tensors it
 runs :func:`reference_flash_attention`, the plain einsum version of the
 same function, which autograd differentiates.  There is no other fallback:
 an option the kernels do not take yet (``sink``, ``q_start``) raises
@@ -42,30 +46,33 @@ _HEAD_DIMS = (64, 128)
 _TODO = "not in the CUDA kernels yet (ROADMAP Queue 2)"
 
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# B, T, H, hd; sm_scale, causal, window, rate, seed, dtype; stream
+_TAIL = [_I] * 4 + [_F, _I, _I, _F, _I, _I, _P]
+# (argtypes, restype) of every C entry point of csrc/flash_attention.cu
+SIGNATURES = {
+    # q, k, v, bias, kvm, o, lse
+    "nnl_flash_fwd": ([_P] * 7 + _TAIL, _I),
+    # q, k, v, do, lse, delta, bias, kvm, dq
+    "nnl_flash_bwd_dq": ([_P] * 9 + _TAIL, _I),
+    # q, k, v, do, lse, delta, bias, kvm, dk, dv
+    "nnl_flash_bwd_dkv": ([_P] * 10 + _TAIL, _I),
+    # q, k, v, do, lse, delta, bias, kvm, dbias
+    "nnl_flash_bwd_dbias": ([_P] * 9 + _TAIL, _I),
+    # seeds, n_seeds, n_bh, n_q, n_k, q0, k0, rate, out, stream
+    "nnl_flash_drop_keep": ([_P] + [_I] * 6 + [_F, _P, _P], _I),
+    "nnl_flash_error_string": ([_I], ctypes.c_char_p),
+}
+
+
 @functools.cache
 def _lib():
     from neuralnetworklibrary_tpu_torch.kernels.build import load
 
     lib = load("flash_attention")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # B, T, H, hd; sm_scale, causal, window, rate, seed, dtype; stream
-    tail = [i] * 4 + [f, i, i, f, i, i, p]
-    # q, k, v, bias, kvm, o, lse
-    lib.nnl_flash_fwd.argtypes = [p] * 7 + tail
-    # q, k, v, do, lse, delta, bias, kvm, dq
-    lib.nnl_flash_bwd_dq.argtypes = [p] * 9 + tail
-    # q, k, v, do, lse, delta, bias, kvm, dk, dv
-    lib.nnl_flash_bwd_dkv.argtypes = [p] * 10 + tail
-    # q, k, v, do, lse, delta, bias, kvm, dbias
-    lib.nnl_flash_bwd_dbias.argtypes = [p] * 9 + tail
-    # seeds, n_seeds, n_bh, n_q, n_k, q0, k0, rate, out, stream
-    lib.nnl_flash_drop_keep.argtypes = [p] + [i] * 6 + [f, p, p]
-    for fn in (lib.nnl_flash_fwd, lib.nnl_flash_bwd_dq,
-               lib.nnl_flash_bwd_dkv, lib.nnl_flash_bwd_dbias,
-               lib.nnl_flash_drop_keep):
-        fn.restype = i
-    lib.nnl_flash_error_string.argtypes = [i]
-    lib.nnl_flash_error_string.restype = ctypes.c_char_p
+    for name, (argtypes, restype) in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, restype
     return lib
 
 
@@ -183,6 +190,11 @@ def _check(named: dict, dtype, device):
         want = torch.float32 if name in ("lse", "delta") else dtype
         if t.dtype != want:
             raise ValueError(f"{name} dtype {t.dtype} != {want}")
+        if want == torch.bfloat16 and t.data_ptr() % 16:
+            # K1 and K2 read bf16 rows by TMA (rows are H * hd * 2 bytes
+            # apart, a multiple of 128 for the head dims they take)
+            raise ValueError(f"{name} must start on a 16-byte boundary "
+                             f"for the bf16 kernels")
 
 
 def _run(fn, *args):
@@ -239,8 +251,8 @@ def flash_fwd(q, k, v, sm_scale, window=0, dropout=0.0, seed=0, *,
 
 
 def _bwd_inputs(q, k, v, do, lse, delta):
-    _check({"k": k, "v": v, "do": do, "lse": lse, "delta": delta},
-           q.dtype, q.device)
+    _check({"q": q, "k": k, "v": v, "do": do, "lse": lse,
+            "delta": delta}, q.dtype, q.device)
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr())
 
