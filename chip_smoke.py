@@ -16,8 +16,11 @@ name and power limit from nvidia-smi):
           0 and 0.1, at T 1024 and at a T that is no multiple of the tile,
           and at the training path's own shape; and the kernels' dropout
           hash against the plain one bit for bit.  Then the edges of the
-          bf16 tensor-core K1 and K2: T 127, 129, 200, 1000, windows 100 and
-          129, B*H 1 and 3, T 114 with a bias, a fully masked batch row.
+          bf16 tensor-core K1, K2 and K3 and of the dbias folded into K3:
+          T 127, 129, 200, 1000 (with and without a bias), windows 100 and
+          129, B*H 1 and 3, T 114 with a bias, a fully masked batch row,
+          dropout; and K3 with dbias twice on the same inputs, which must
+          give the same bits.
 - serve:  GPT-2-124M at full width (random weights from --seed, loaded
           through load_jax_params): (a) one f32 paged decode step, kernel
           path against gather path; (b) bf16 PagedServingEngine over 16
@@ -28,6 +31,10 @@ name and power limit from nvidia-smi):
           configuration (bf16, B 8, T 1024, Adam2, lr 1e-4, wd 1e-6, drop 0),
           10 train1minibatch steps on one fixed batch, then one evaluate.
           Flash kernel launches are counted over (b).
+- auto_flash: the models' auto rule: the default TransformerLM (hd 32)
+          trains a bf16 step through the Learner on the einsum path (no
+          flash launch), at hd 64 on the flash path; sinks=True runs
+          einsum; flash_attention=True at hd 32 raises.
 - lstm:   K6 (LSTM forward scan) and K7 (backward scan) against their
           plain versions on the same bf16 inputs and residuals, B 1, 3, 64
           x T 1, 7, 75 x H 24, 400, 1150 and three shapes for the kernels'
@@ -71,8 +78,9 @@ name and power limit from nvidia-smi):
 --profile adds torch.profiler breakdowns of one more serve run and of one
 more train step of each model: device time by kernel and, for the train
 steps, the host ops with the most host time of their own.  --tile-sweep
-adds K1 and K2 built with other key-tile widths and ring depths, timed at
-hd 64 and 128 (the measurement behind the shipped constants).
+adds K1 and K2 built with other key-tile widths and ring depths, and K3
+with other query-tile widths, consumer warpgroups and ring depths, timed
+at hd 64 and 128 (the measurement behind the shipped constants).
 
 Then a "kernels" line with every ported kernel, and last the line
 {"ok": true, "device": {...}}.  Any failure exits non-zero; no phase
@@ -102,11 +110,16 @@ FLASH_REPLACES = {
     "flash_bwd_dkv": "neuralnetworklibrary_tpu/ops/flash_attention.py:338",
     "flash_bwd_dbias": "neuralnetworklibrary_tpu/ops/flash_attention.py:419"}
 FLASH_KERNELS = tuple(FLASH_REPLACES)
-# what computes each kernel: K1 and K2 run on the tensor cores for bf16
-# (the main paths' type) and on the CUDA cores in f32 for float32
+# what computes each kernel: K1-K3 run on the tensor cores for bf16 (the
+# main paths' type) and on the CUDA cores in f32 for float32; bf16 dbias
+# comes out of K3's pass (its dS per batch row) and a batch-sum kernel
 FLASH_DESIGN = {"flash_fwd": "wgmma+TMA, bf16 (SIMT f32 for float32)",
                 "flash_bwd_dq": "wgmma+TMA, bf16 (SIMT f32 for float32)",
-                "flash_bwd_dkv": "SIMT f32", "flash_bwd_dbias": "SIMT f32"}
+                "flash_bwd_dkv": "wgmma+TMA, bf16 (SIMT f32 for float32)",
+                "flash_bwd_dbias": "bf16: folded into flash_bwd_dkv_tc_kernel"
+                                   "'s pass (dS per batch row to a scratch) "
+                                   "+ flash_dbias_reduce_kernel (sum over b, "
+                                   "fixed order); SIMT f32 for float32"}
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM (hopper-kernels guide, table 1)
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -483,11 +496,13 @@ def flash_plain(q, k, v, do, window, dropout, seed, causal=True, bias=None,
 
 def flash_kernels(q, k, v, do, window, dropout, seed, causal=True,
                   bias=None, kv_mask=None):
-    """K1, then K2, K3 (and K4 with a bias) on the saved (o, lse): o, lse,
-    dq, dk, dv (, dbias)."""
+    """K1, then K2 and K3 on the saved (o, lse): o, lse, dq, dk, dv; with
+    a bias K3 runs twice, alone and with dbias (K4 folded into its pass),
+    and the two calls' dk and dv must agree bit for bit: o, lse, dq, dk,
+    dv, dbias."""
     from neuralnetworklibrary_tpu_torch.ops.flash_attention import (
-        flash_bwd_dbias,
         flash_bwd_dkv,
+        flash_bwd_dkv_dbias,
         flash_bwd_dq,
         flash_fwd,
     )
@@ -499,9 +514,14 @@ def flash_kernels(q, k, v, do, window, dropout, seed, causal=True,
     delta = ((do.float() * o.float()).sum(-1).transpose(1, 2)
              .reshape(B * H, T).contiguous())
     args = (q, k, v, do, lse, delta, scale, window, dropout, seed)
-    out = (o, lse, flash_bwd_dq(*args, **kw)) + flash_bwd_dkv(*args, **kw)
+    dk, dv = flash_bwd_dkv(*args, **kw)
+    out = (o, lse, flash_bwd_dq(*args, **kw), dk, dv)
     if bias is not None:
-        out += (flash_bwd_dbias(*args, **kw),)
+        dk2, dv2, dbias = flash_bwd_dkv_dbias(*args, **kw)
+        if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+            fail(f"K3 with dbias gave other dk, dv than K3 alone (B={B} "
+                 f"T={T} H={H} hd={hd} causal={causal} dropout={dropout})")
+        out += (dbias,)
     return out
 
 
@@ -545,18 +565,21 @@ def flash_errors(got, want, dtype, slack=None):
     return errs, share
 
 
-def dbias_slack(q, k, v, do, o, causal, bias, kv_mask):
+def dbias_slack(q, k, v, do, o, causal, bias, kv_mask, window=0):
     """bf16 room for K4 (see DBIAS_TOL): 2 * sum_b P_b * c_b per (h, q, k),
-    with P the undropped softmax of the plain version and c_b the bound on
-    a row's delta error from the kernels' bf16 o."""
+    with P the undropped softmax of the plain version (its causal band and
+    window) and c_b the bound on a row's delta error from the kernels'
+    bf16 o."""
     q, k, do = q.float(), k.float(), do.float()
     T, hd = q.shape[1], q.shape[3]
     s = torch.einsum("bqhd,bkhd->bhqk", q, k) / hd ** 0.5 + bias
     if kv_mask is not None:
         s = s.masked_fill(~kv_mask[:, None, None, :], -1e30)
     if causal:
-        s = s.masked_fill(~torch.ones(T, T, dtype=torch.bool,
-                                      device=q.device).tril(), float("-inf"))
+        seen = torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
+        if window > 0:
+            seen &= ~torch.ones_like(seen).tril(-window)
+        s = s.masked_fill(~seen, float("-inf"))
     c = 2 ** -9 * (do.abs() * o.float().abs()).sum(-1).transpose(1, 2)
     return 2 * torch.einsum("bhqk,bhq->hqk", torch.softmax(s, -1), c)
 
@@ -568,7 +591,7 @@ def check_flash(case, window, dropout, seed, dtype, **kw):
     slack = None
     if kw.get("bias") is not None and dtype == torch.bfloat16:
         slack = dbias_slack(*case, got[0], kw.get("causal", True),
-                            kw["bias"], kw.get("kv_mask"))
+                            kw["bias"], kw.get("kv_mask"), window)
     torch.cuda.synchronize()
     return flash_errors(got, want, dtype, slack)
 
@@ -640,21 +663,26 @@ def phase_flash_kernel(seed):
 
 
 def phase_flash_edges(seed):
-    """The edges of the bf16 tensor-core K1 and K2 (K3, K4 run beside them
-    on their outputs): T no multiple of the 64-row key tile or the 128-row
-    block, windows that end inside a tile, fewer blocks than SMs (B*H 1
-    and 3), the T5 decoder's T 114 with a bias, and a batch row whose keys
-    are all masked; at hd 64 and 128, under FLASH_TOL."""
+    """The edges of the bf16 tensor-core K1, K2 and K3 and of the dbias
+    folded into K3's pass: T no multiple of the 64-row tiles or the
+    128-row blocks, windows that end inside a tile, fewer blocks than SMs
+    (B*H 1 and 3), the T5 decoder's T 114 with a bias, and a batch row
+    whose keys are all masked; at hd 64 and 128, under FLASH_TOL (dbias
+    under DBIAS_TOL and its bf16 slack).  Then K3 with dbias twice at the
+    T5 encoder's shape: dk, dv and dbias must be the same bits."""
     rng = np.random.default_rng(seed + 12)
     cases = []
     for T in (127, 129, 200, 1000):
-        cases += [dict(B=1, H=1, T=T), dict(B=1, H=3, T=T, dropout=0.1)]
+        cases += [dict(B=1, H=1, T=T), dict(B=1, H=3, T=T, dropout=0.1),
+                  dict(B=1, H=3, T=T, bias=True)]
     cases += [dict(B=1, H=3, T=1000, window=w) for w in (100, 129)]
-    cases += [dict(B=2, H=2, T=114, bias=True, dropout=0.1),
+    cases += [dict(B=1, H=3, T=1000, window=129, bias=True, dropout=0.1),
+              dict(B=2, H=2, T=114, bias=True, dropout=0.1),
               dict(B=2, H=2, T=200, causal=False, mask="empty"),
               dict(B=2, H=2, T=200, causal=False, mask="empty", bias=True),
               dict(B=3, H=1, T=129, causal=False, mask="ragged", bias=True,
-                   dropout=0.1)]
+                   dropout=0.1),
+              dict(B=3, H=1, T=127, causal=False, mask="empty", bias=True)]
     worst, worst_share, n_cases = {}, 0.0, 0
     for hd in (64, 128):
         for c in cases:
@@ -674,14 +702,46 @@ def phase_flash_edges(seed):
                 fail(f"flash kernels bf16 hd={hd} {c}: max|err| {errs} past "
                      f"{FLASH_TOL[torch.bfloat16]}")
             n_cases += 1
+    same = flash_determinism(rng)
     emit({"phase": "kernel",
-          "kernel": "flash_attention bf16 edges (K1, K2 wgmma+TMA; K3, K4 "
-                    "on their outputs)",
+          "kernel": "flash_attention bf16 edges (K1, K2, K3 wgmma+TMA; "
+                    "dbias folded into K3)",
           "cases": n_cases, "max_abs_err": worst,
           "tol_atol_rtol": FLASH_TOL[torch.bfloat16],
-          "worst_share_of_tol": worst_share})
+          "worst_share_of_tol": worst_share,
+          "determinism": same})
     return {"flash_fwd": max(worst["o"], worst["lse"]),
-            "flash_bwd_dq": worst["dq"]}
+            "flash_bwd_dq": worst["dq"],
+            "flash_bwd_dkv": max(worst["dk"], worst["dv"]),
+            "flash_bwd_dbias": worst["dbias"]}
+
+
+def flash_determinism(rng):
+    """K3 with dbias called twice on the same inputs at the T5 encoder's
+    shape (bf16 B 16, H 12, T 512, bidirectional, ragged key mask, bias,
+    dropout 0.1): dk, dv and dbias must be bit-identical (the batch sum
+    has a fixed order and no atomics)."""
+    from neuralnetworklibrary_tpu_torch.ops.flash_attention import (
+        flash_bwd_dkv_dbias,
+        flash_fwd,
+    )
+
+    B, T, H, hd = 16, 512, 12, 64
+    (q, k, v, do), bias, mask = flash_option_case(
+        rng, B, T, H, hd, torch.bfloat16, True, "ragged")
+    kw = dict(causal=False, bias=bias, kvm=additive_mask(mask))
+    o, lse = flash_fwd(q, k, v, hd ** -0.5, 0, 0.1, 99, **kw)
+    delta = ((do.float() * o.float()).sum(-1).transpose(1, 2)
+             .reshape(B * H, T).contiguous())
+    args = (q, k, v, do, lse, delta, hd ** -0.5, 0, 0.1, 99)
+    first = flash_bwd_dkv_dbias(*args, **kw)
+    second = flash_bwd_dkv_dbias(*args, **kw)
+    torch.cuda.synchronize()
+    same = {n: torch.equal(a, b)
+            for n, a, b in zip(("dk", "dv", "dbias"), first, second)}
+    if not all(same.values()):
+        fail(f"K3 with dbias is not deterministic: bit-identical {same}")
+    return same
 
 
 def flash_option_case(rng, B, T, H, hd, dtype, bias, mask):
@@ -1079,6 +1139,81 @@ def phase_train(seed, profile=False):
     return launches
 
 
+def phase_auto_flash(seed):
+    """The models' auto rule (``ops.flash_attention.use_flash``) on the
+    card.  The default TransformerLM (d_model 256, 8 heads: hd 32, which
+    the kernels do not take) trains one bf16 step through the Learner on
+    its einsum path and launches no flash kernel; at 4 heads (hd 64) the
+    same model takes the flash path (K1-K3 once per layer); a sinks=True
+    model runs einsum; flash_attention=True at hd 32 raises."""
+    import tempfile
+    import types
+
+    from neuralnetworklibrary_tpu_torch.applications.text import (
+        SeqCrossEntropyLoss,
+    )
+    from neuralnetworklibrary_tpu_torch.data.loader import (
+        ArrayDataset,
+        DataLoader,
+    )
+    from neuralnetworklibrary_tpu_torch.learner import Learner
+    from neuralnetworklibrary_tpu_torch.nn.transformer import TransformerLM
+    from neuralnetworklibrary_tpu_torch.ops import flash_attention as fa
+
+    V, T, B = 512, 256, 8
+    rng = np.random.default_rng(seed + 14)
+    xs = rng.integers(0, V, (B, T + 1)).astype(np.int32)
+    ds = ArrayDataset(xs[:, :-1], xs[:, 1:])
+    data = types.SimpleNamespace(target_type="lang_model", bs=B,
+                                 train_dl=DataLoader(ds, B, prefetch=0),
+                                 val_dl=DataLoader(ds, B, prefetch=0))
+    batch = data.train_dl.peek()
+    counted = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    out = {}
+    for name, kw in (("default_hd32", {}), ("hd64", dict(n_heads=4))):
+        torch.manual_seed(seed)
+        model = TransformerLM(vocab_size=V, **kw)
+        with tempfile.TemporaryDirectory() as tmp:
+            learner = Learner(tmp, data, model, "Adam2",
+                              loss_func=SeqCrossEntropyLoss(), seed=seed,
+                              compute_dtype="bfloat16")
+            learner.init_optimizer(wd=1e-6)
+            for fn in counted:
+                fn.launches = 0
+            loss = float(learner.train1minibatch(batch, 1e-3))
+            torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in counted}
+        flash = model.uses_flash("cuda")
+        want = {n: model.n_layers if flash else 0 for n in launches}
+        if not np.isfinite(loss) or launches != want:
+            fail(f"auto flash, {name} (head dim {model.head_dim}): loss "
+                 f"{loss}, flash launches {launches} != {want}")
+        out[name] = {"head_dim": model.head_dim, "flash": flash,
+                     "loss": loss, "kernel_launches": launches}
+    if out["default_hd32"]["flash"] or not out["hd64"]["flash"]:
+        fail(f"auto flash picked {out}")
+    x = torch.from_numpy(xs[:2, :T]).long().cuda()
+    sinks = TransformerLM(vocab_size=V, n_heads=4, sinks=True)
+    with torch.no_grad():
+        logits, _ = sinks(x)
+    out["sinks_hd64"] = {"flash": sinks.uses_flash("cuda"),
+                         "finite": bool(torch.isfinite(logits).all())}
+    if out["sinks_hd64"] != {"flash": False, "finite": True}:
+        fail(f"auto flash with sinks: {out['sinks_hd64']}")
+    forced = TransformerLM(vocab_size=V, flash_attention=True)
+    try:
+        with torch.no_grad():
+            forced(x)
+    except ValueError as e:
+        out["forced_hd32_raises"] = str(e)
+    else:
+        fail("flash_attention=True at head dim 32 ran on the card")
+    emit({"phase": "auto_flash", "model": "TransformerLM(vocab 512), "
+          "default widths", "B": B, "T": T, "dtype": "bfloat16 (autocast)",
+          **out})
+    return out
+
+
 def flash_bound(B, T, H, hd, kind, causal=True, bias=False, mask=False):
     """Least time of one call at this shape: the bytes it must move (each
     input read once, each output written once) over HBM bandwidth, against
@@ -1096,7 +1231,12 @@ def flash_bound(B, T, H, hd, kind, causal=True, bias=False, mask=False):
         "flash_bwd_dkv": (6 * elem + 2 * vec, 8 * hd * pairs),
         # q, k, v, dO, lse, delta in; dbias out: s and dP, 4*hd per pair
         "flash_bwd_dbias": (4 * elem + 2 * vec + H * T * T * 4,
-                            4 * hd * pairs)}[kind]
+                            4 * hd * pairs),
+        # K3 with K4 folded in: K3's bytes and the dbias write (the bias
+        # read is in ``extra``); the per-batch scratch is not counted, as
+        # the least work the function needs does not move it
+        "flash_bwd_dkv_dbias": (6 * elem + 2 * vec + H * T * T * 4,
+                                8 * hd * pairs)}[kind]
     t_bytes = (nbytes + extra) / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_OPS[torch.bfloat16] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -1774,8 +1914,8 @@ def phase_t5_timing(seed):
     from torch.nn.attention import SDPBackend
 
     from neuralnetworklibrary_tpu_torch.ops.flash_attention import (
-        flash_bwd_dbias,
         flash_bwd_dkv,
+        flash_bwd_dkv_dbias,
         flash_bwd_dq,
         flash_fwd,
         reference_flash_attention,
@@ -1801,8 +1941,17 @@ def phase_t5_timing(seed):
               q, k, v, scale, 0, rate, dseed, **kw)),
           "flash_bwd_dq": timer.stats(lambda: flash_bwd_dq(*args, **kw)),
           "flash_bwd_dkv": timer.stats(lambda: flash_bwd_dkv(*args, **kw)),
-          "flash_bwd_dbias": timer.stats(lambda: flash_bwd_dbias(*args,
-                                                                 **kw))}
+          # K4 runs inside K3's pass (plus the batch sum): its row is the
+          # fused call's, dk, dv and dbias together
+          "flash_bwd_dbias": timer.stats(lambda: flash_bwd_dkv_dbias(
+              *args, **kw))}
+    # K3 at the same shape with none of the options (bidirectional only):
+    # what the bias, key mask and dropout cost it
+    o0, lse0 = flash_fwd(q, k, v, scale, causal=False)
+    delta0 = ((do.float() * o0.float()).sum(-1).transpose(1, 2)
+              .reshape(B * H, T).contiguous())
+    no_options = timer.stats(lambda: flash_bwd_dkv(
+        q, k, v, do, lse0, delta0, scale, causal=False))
 
     # the plain version, and as a yardstick only, never called by the
     # port: SDPA's memory-efficient backend with the bias and the key mask
@@ -1821,10 +1970,22 @@ def phase_t5_timing(seed):
     rows = {}
     for name in st:
         fwd = name == "flash_fwd"
+        fused = name == "flash_bwd_dbias"
         rows[name] = timed_row(st[name], plain_fwd if fwd else plain_bwd,
                                lib_fwd if fwd else lib_bwd,
-                               flash_bound(B, T, H, hd, name, causal=False,
+                               flash_bound(B, T, H, hd,
+                                           "flash_bwd_dkv_dbias" if fused
+                                           else name, causal=False,
                                            bias=True, mask=True))
+        if name == "flash_bwd_dkv":
+            rows[name]["no_options_ms"] = no_options["ms"]
+            rows[name]["no_options_ms_spread"] = [no_options["min"],
+                                                  no_options["max"]]
+        if fused:
+            rows[name]["call"] = ("flash_bwd_dkv_dbias: K3 with dS per batch "
+                                  "row, then the batch sum (dk, dv, dbias)")
+            rows[name]["over_dkv_alone_ms"] = (rows[name]["ms"]
+                                               - rows["flash_bwd_dkv"]["ms"])
         emit({"phase": "timing", "kernel": name, "shape": "t5_encoder",
               "B": B, "T": T, "H": H, "hd": hd, "dtype": "bfloat16",
               "causal": False, "bias": True, "kv_mask": "lengths 384-512",
@@ -1850,14 +2011,37 @@ def tc_smem_bytes(hd, tile, stages, n_stationary):
             * 128 + 8 * (1 + 2 * stages) + 1024)
 
 
+def dkv_smem_bytes(hd, q_tile, groups, stages, opt):
+    """Shared memory of the tensor-core K3 (DkvSmem in the source): k and v
+    of 64 * groups rows, the ring of q and dO tiles, each stage's lse and
+    delta and, with the options, its float32 bias tile."""
+    halves, rows = hd // 64, 64 * groups
+    ring = 2 * halves * rows * 128 + stages * 2 * halves * q_tile * 128
+    bias = stages * q_tile * rows * 4 if opt else 0
+    return ring + bias + stages * 2 * q_tile * 4 + 8 * (1 + 3 * stages) + 1024
+
+
+SMEM_LIMIT = 232448               # bytes a block may use (227 KB)
+K12_NAMES = ("kKeyTile", "kFwdStages", "kDqStages")
+K3_NAMES = ("kDkvQTile{hd}", "kDkvGroups{hd}", "kDkvStages{hd}",
+            "kDkvProducerRegs{hd}")
+K12_VARIANTS = ((128, 3, 3), (64, 2, 2), (128, 2, 2), (64, 4, 4))
+# K3 (query tile, consumer warpgroups, ring depth, the producer's
+# registers under setmaxnreg or 0 for none), set at hd 64 and 128
+K3_VARIANTS = ((32, 2, 3, 0), (32, 2, 3, 72), (32, 2, 2, 72), (64, 2, 2, 72),
+               (64, 2, 2, 88), (64, 2, 3, 80), (64, 1, 2, 0), (32, 1, 3, 0))
+
+
 def phase_tile_sweep(seed):
-    """K1 and K2 built with other key-tile widths and ring depths, each
+    """K1 and K2 built with other key-tile widths and ring depths, and K3
+    with other query-tile widths, consumer warpgroups and ring depths, each
     timed at the GPT-2 and T5-encoder shapes at hd 64 and hd 128 (12 and 6
-    heads): the measurement behind the constants kKeyTile, kFwdStages and
-    kDqStages of csrc/flash_attention.cu.  Each variant is an edited copy
-    of the source, built into _build/ and loaded in place of the shipped
-    library for its timing only.  Variants whose ring does not fit in
-    shared memory are listed, not timed."""
+    heads): the measurement behind the constants kKeyTile, kFwdStages,
+    kDqStages and kDkv* of csrc/flash_attention.cu (K3 at the T5 shape
+    with dbias).  Each variant is an edited copy of the source, built into
+    _build/ and loaded in place of the shipped library for its timing
+    only.  Variants that do not fit in shared memory are listed, not
+    timed; each line carries its variant's ptxas registers and spills."""
     import ctypes
     import shutil
     import subprocess as sp
@@ -1866,41 +2050,53 @@ def phase_tile_sweep(seed):
     from neuralnetworklibrary_tpu_torch.ops import flash_attention as fa
 
     src = (build.CSRC / "flash_attention.cu").read_text()
-    names = ("kKeyTile", "kFwdStages", "kDqStages")
-    shipped = tuple(int(re.search(rf"constexpr int {n} = (\d+);", src)
-                        .group(1)) for n in names)
-    variants = [shipped] + [v for v in ((128, 3, 3), (64, 2, 2), (128, 2, 2),
-                                        (64, 4, 4)) if v != shipped]
+
+    def shipped_value(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    shipped12 = tuple(shipped_value(n) for n in K12_NAMES)
+    shipped3 = {hd: tuple(shipped_value(n.format(hd=hd)) for n in K3_NAMES)
+                for hd in (64, 128)}
+    # a variant: (family, label, {constant: value}); the shipped source
+    # first, under the family "shipped"
+    variants = [("shipped", "shipped", {})]
+    variants += [("k1k2", "k1k2_%d_%d_%d" % v, dict(zip(K12_NAMES, v)))
+                 for v in K12_VARIANTS if v != shipped12]
+    variants += [("k3", "k3_%d_%d_%d_r%d" % v,
+                  {n.format(hd=hd): x for hd in (64, 128)
+                   for n, x in zip(K3_NAMES, v)})
+                 for v in K3_VARIANTS]
     procs = {}
-    for v in variants[1:]:
-        d = build.BUILD / ("sweep_%d_%d_%d" % v)
+    for family, label, consts in variants[1:]:
+        d = build.BUILD / f"sweep_{label}"
         d.mkdir(parents=True, exist_ok=True)
         shutil.copy(build.CSRC / "hopper.cuh", d / "hopper.cuh")
         text = src
-        for n, old, new in zip(names, shipped, v):
-            line = f"constexpr int {n} = {old};"
+        for n, new in consts.items():
+            line = f"constexpr int {n} = {shipped_value(n)};"
             if text.count(line) != 1:
                 fail(f"tile sweep: {line!r} is not in the source once")
             text = text.replace(line, f"constexpr int {n} = {new};")
         (d / "flash_attention.cu").write_text(text)
-        procs[v] = sp.Popen([build.nvcc(), *build.FLAGS, "-o",
-                             str(d / "lib.so"), str(d / "flash_attention.cu")],
-                            stdout=sp.PIPE, stderr=sp.STDOUT, text=True)
-    libs = {shipped: fa._lib()}
+        procs[label] = sp.Popen([build.nvcc(), *build.FLAGS, "-o",
+                                 str(d / "lib.so"),
+                                 str(d / "flash_attention.cu")],
+                                stdout=sp.PIPE, stderr=sp.STDOUT, text=True)
+    libs = {"shipped": fa._lib()}
     reports = {}
-    for v, proc in procs.items():
+    for label, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            fail(f"tile sweep variant {v} did not build:\n{log[-3000:]}")
-        libs[v] = ctypes.CDLL(str(build.BUILD / ("sweep_%d_%d_%d" % v)
-                                  / "lib.so"))
+            fail(f"tile sweep variant {label} did not build:\n{log[-3000:]}")
+        libs[label] = ctypes.CDLL(str(build.BUILD / f"sweep_{label}"
+                                      / "lib.so"))
         for n, (argtypes, restype) in fa.SIGNATURES.items():
-            fn = getattr(libs[v], n)
+            fn = getattr(libs[label], n)
             fn.argtypes, fn.restype = argtypes, restype
-        reports[v] = {k: r for k, r in ptxas_report(log).items()
-                      if "_tc_kernel" in k}
+        reports[label] = {k: r for k, r in ptxas_report(log).items()
+                          if "_tc_kernel" in k}
 
-    # K2's inputs come from the shipped K1
+    # the backward kernels' inputs come from the shipped K1
     rng = np.random.default_rng(seed + 13)
     timer = Timer()
     shapes = {}
@@ -1922,27 +2118,50 @@ def phase_tile_sweep(seed):
                      .reshape(B * H, T).contiguous())
             shapes[f"{name}_hd{hd}"] = ((q, k, v, do, lse, delta,
                                          hd ** -0.5), opt, kw)
+
+    def k12_times(var, args, opt, kw, hd):
+        q, k, v = args[:3]
+        tile, fs, ds = var
+        return {"flash_fwd": timer.stats(lambda: fa.flash_fwd(
+                    q, k, v, args[-1], *opt, **kw))
+                if tc_smem_bytes(hd, tile, fs, 1) <= SMEM_LIMIT
+                else "does not fit in shared memory",
+                "flash_bwd_dq": timer.stats(lambda: fa.flash_bwd_dq(
+                    *args, *opt, **kw))
+                if tc_smem_bytes(hd, tile, ds, 2) <= SMEM_LIMIT
+                else "does not fit in shared memory"}
+
+    def k3_times(var, args, opt, kw, hd):
+        with_bias = kw.get("bias") is not None
+        if dkv_smem_bytes(hd, *var[:3], with_bias or opt[1] > 0) > SMEM_LIMIT:
+            return {"flash_bwd_dkv": "does not fit in shared memory"}
+        if with_bias:
+            return {"flash_bwd_dkv_dbias": timer.stats(
+                lambda: fa.flash_bwd_dkv_dbias(*args, *opt, **kw))}
+        return {"flash_bwd_dkv": timer.stats(
+            lambda: fa.flash_bwd_dkv(*args, *opt, **kw))}
+
     lib_of = fa._lib
     try:
-        for var in variants:
-            fa._lib = lambda lib=libs[var]: lib
+        for family, label, consts in variants:
+            fa._lib = lambda lib=libs[label]: lib
             times = {}
             for shape, (args, opt, kw) in shapes.items():
                 hd = args[0].shape[3]
-                q, k, v = args[:3]
-                times[shape] = {
-                    "flash_fwd": timer.stats(lambda: fa.flash_fwd(
-                        q, k, v, args[-1], *opt, **kw))
-                    if tc_smem_bytes(hd, var[0], var[1], 1) <= 232448
-                    else "does not fit in shared memory",
-                    "flash_bwd_dq": timer.stats(lambda: fa.flash_bwd_dq(
-                        *args, *opt, **kw))
-                    if tc_smem_bytes(hd, var[0], var[2], 2) <= 232448
-                    else "does not fit in shared memory"}
-            emit({"phase": "tile_sweep", "key_tile": var[0],
-                  "fwd_stages": var[1], "dq_stages": var[2],
-                  "shipped": var == shipped, "times_ms": times,
-                  "ptxas": reports.get(var, "as in the build phase")})
+                times[shape] = {}
+                if family in ("shipped", "k1k2"):
+                    var12 = tuple(consts.get(n, shipped12[i])
+                                  for i, n in enumerate(K12_NAMES))
+                    times[shape].update(k12_times(var12, args, opt, kw, hd))
+                if family in ("shipped", "k3"):
+                    var3 = tuple(consts.get(n.format(hd=hd), shipped3[hd][i])
+                                 for i, n in enumerate(K3_NAMES))
+                    times[shape].update(k3_times(var3, args, opt, kw, hd))
+                    times[shape]["k3_variant"] = var3
+            emit({"phase": "tile_sweep", "variant": label,
+                  "constants": consts or "as shipped",
+                  "shipped": family == "shipped", "times_ms": times,
+                  "ptxas": reports.get(label, "as in the build phase")})
     finally:
         fa._lib = lib_of
 
@@ -1954,8 +2173,8 @@ def main():
                     help="also print device time by kernel of a serve "
                          "run and of a train step of each model")
     ap.add_argument("--tile-sweep", action="store_true",
-                    help="also time K1 and K2 built with other key-tile "
-                         "widths and ring depths")
+                    help="also time K1, K2 and K3 built with other tile "
+                         "widths, warpgroups and ring depths")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1974,6 +2193,7 @@ def main():
     edge_err = phase_flash_edges(args.seed)
     launches = phase_serve(args.seed, args.profile)
     flash_launches = phase_train(args.seed, args.profile)
+    phase_auto_flash(args.seed)
     lstm_err = phase_lstm_kernel(args.seed)
     lstm_launches = phase_lm(args.seed, args.profile)
     t5_err = phase_flash_options(args.seed)
@@ -2003,9 +2223,12 @@ def main():
             "name": name, "route": "cuda", "source": FLASH_SOURCE,
             "design": FLASH_DESIGN[name], "replaces": FLASH_REPLACES[name],
             "launches": sum(by_path.values()), "launches_by_path": by_path,
-            "max_abs_err": (t5_err[name] if dbias else
+            **({"launches_counted": "one per K3 pass that emits dS (also "
+                                    "counted in flash_bwd_dkv), each with "
+                                    "one batch-sum launch"} if dbias else {}),
+            "max_abs_err": (max(t5_err[name], edge_err[name]) if dbias else
                             max(flash_err[name], t5_err[name],
-                                edge_err.get(name, 0.0))),
+                                edge_err[name])),
             "tol": ("atol %g x max|ref| + rtol %g + bf16 delta slack"
                     if dbias else "atol %g + rtol %g") % tol,
             "shape": "t5_encoder" if dbias else "gpt2_train", **row,

@@ -8,9 +8,11 @@
 //   K2 <- _bwd_dq_kernel (:275): dq by a loop over key tiles
 //        bf16: flash_bwd_dq_tc_kernel; float32: flash_bwd_dq_kernel
 //   K3 <- _bwd_dkv_kernel (:338): dk, dv by a loop over query tiles
-//        flash_bwd_dkv_kernel, both types
+//        bf16: flash_bwd_dkv_tc_kernel; float32: flash_bwd_dkv_kernel
 //   K4 <- _bwd_dbias_kernel (:419): dbias = sum over the batch of dS
-//        flash_bwd_dbias_kernel, both types
+//        bf16: folded into flash_bwd_dkv_tc_kernel's pass (dS per batch
+//        row into a scratch) and flash_dbias_reduce_kernel (the sum over
+//        the batch); float32: flash_bwd_dbias_kernel
 // The (T, T) score matrix is never written: each block holds a tile of its
 // own side and streams tiles of the other side through shared memory,
 // with the online softmax (m, l) in the forward and p = exp(s - lse)
@@ -40,10 +42,10 @@
 // read and dbias write.
 //
 // Two designs:
-// - K1, K2 on bf16 (the training paths' type): tensor cores (wgmma) fed by
-//   TMA through an mbarrier ring, warp-specialised, below ("K1, K2 on
-//   tensor cores").
-// - K1, K2 on float32 and K3, K4 on both types: the first, simple design,
+// - K1, K2, K3 (with K4) on bf16 (the training paths' type): tensor cores
+//   (wgmma) fed by TMA through an mbarrier ring, warp-specialised, below
+//   ("K1, K2 on tensor cores" and "K3 on tensor cores").
+// - K1-K4 on float32: the first, simple design,
 //   float32 on the CUDA cores, so shared-memory loads bound it.  One block
 //   of 256 threads per (tile of 64 rows, bh); thread (ty, tx) of a 16 x 16
 //   grid owns rows ty*4 .. ty*4+3 and columns tx, tx+16, ..., so every
@@ -70,13 +72,14 @@
 //   normalizer l sums the undropped probabilities; only the value
 //   accumulation sees the mask, scaled by 1/(1 - rate).
 //
-// Later work: K3 and K4 on the tensor cores (dbias folded into the dkv
-// pass); a persistent grid; fp8; native GQA (read the Hkv heads through
-// the tensor maps); q_start and sink.
+// Later work: a persistent grid; fp8; native GQA (read the Hkv heads
+// through the tensor maps); q_start and sink; head dims other than 64 and
+// 128.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "hopper.cuh"
 
@@ -89,19 +92,12 @@ constexpr float kNegInf = -1e30f;
 constexpr size_t kMaxSmem = 232448;     // 227 KB, the most a block may use
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 // The dropout hash of _drop_keep (flash_attention.py:84) in two parts: the
@@ -685,7 +681,7 @@ __global__ void drop_keep_kernel(const int32_t* __restrict__ seeds,
 
 // ================================================= K1, K2 on tensor cores
 //
-// bf16 only.  One block of three warpgroups per (128 query rows, bh):
+// bf16 only (K3, below, mirrors this design on the key side).  One block of three warpgroups per (128 query rows, bh):
 // warpgroup 0 is the producer (its registers given to the others with
 // setmaxnreg; one thread issues every TMA load), warpgroups 1 and 2 are
 // consumers of 64 query rows each.  The query side (q; q and dO in K2)
@@ -722,12 +718,13 @@ constexpr int kKeyTile = 64;
 constexpr int kFwdStages = 3;
 constexpr int kDqStages = 3;
 
-// Shared memory of a kernel with NQ stationary 128-row tensors and a ring
-// of STAGES BK-row key tiles (k and v): byte offsets, tiles 1024-aligned.
-template <int HD, int BK, int NQ, int STAGES>
+// Shared memory of a kernel with NQ stationary ROWS-row tensors and a ring
+// of STAGES BK-row tiles of two streamed tensors (k and v in K1/K2, q and
+// dO in K3): byte offsets, tiles 1024-aligned.
+template <int HD, int BK, int NQ, int STAGES, int ROWS = kRowsTC>
 struct TcSmem {
   static constexpr int kNH = HD / 64;                  // 64-column halves
-  static constexpr int kQ = kNH * kRowsTC * kHalfRow;  // one stationary
+  static constexpr int kQ = kNH * ROWS * kHalfRow;     // one stationary
   static constexpr int kKV = kNH * BK * kHalfRow;      // one key tile
   static constexpr int kRing = NQ * kQ;
   static constexpr int kBars = kRing + STAGES * 2 * kKV;
@@ -754,40 +751,59 @@ __device__ __forceinline__ void key_range(int q0, int rows, int Tn,
   }
 }
 
-// Whether every pair of query rows qc0 .. qc0 + 63 and key tile k0 is
-// attended by position, so the per-pair position test can be skipped.
-template <int BK>
+// Whether every pair of query rows qc0 .. qc0 + BQ - 1 and key rows k0 ..
+// k0 + BK - 1 is attended by position, so the per-pair position test can
+// be skipped.
+template <int BK, int BQ = 64>
 __device__ __forceinline__ bool interior(int qc0, int k0, int Tn,
                                         int causal, int window) {
-  if (k0 + BK > Tn || qc0 + 64 > Tn) return false;
-  return !causal ||
-         (k0 + BK - 1 <= qc0 && (window <= 0 || qc0 + 63 - k0 < window));
+  if (k0 + BK > Tn || qc0 + BQ > Tn) return false;
+  return !causal || (k0 + BK - 1 <= qc0 &&
+                     (window <= 0 || qc0 + BQ - 1 - k0 < window));
 }
 
+// q_full, then full[s] (the TMA thread's expect_tx, plus n_full - 1 other
+// producer arrivals) and empty[s] (one arrival per consumer warp).
 template <int STAGES>
-__device__ __forceinline__ void tc_init_barriers(uint64_t* bars) {
+__device__ __forceinline__ void tc_init_barriers(uint64_t* bars,
+                                                 int n_full = 1,
+                                                 int n_empty = 8) {
   if (threadIdx.x == 0) {
     mbar_init(bars, 1);  // q_full: the producer's expect_tx
 #pragma unroll
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(bars + 1 + s, 1);           // full[s]
-      mbar_init(bars + 1 + STAGES + s, 8);  // empty[s]: each consumer warp
+      mbar_init(bars + 1 + s, n_full);
+      mbar_init(bars + 1 + STAGES + s, n_empty);
     }
     fence_barrier_init();
   }
   __syncthreads();
 }
 
-// The producer thread: the stationary tensors' 128 rows at q0 (NQ maps),
-// then key tiles j_begin .. j_end of k and v into the ring.
-template <int HD, int BK, int NQ, int STAGES>
+// What the producer loads into a stage besides the two streamed tiles:
+// nothing (K1, K2), or K3's bias tile.
+struct NoExtra {
+  __device__ __forceinline__ uint32_t bytes() const { return 0; }
+  __device__ __forceinline__ void load(int, int, uint64_t*) const {}
+};
+
+// The producer thread: the stationary tensors' ROWS rows at q0 (NQ maps),
+// then tiles j_begin .. j_end (BK rows each) of the two streamed tensors
+// (tm_k, tm_v) into the ring, with extra.load(stage, j, its barrier).  A
+// stage is refilled once the consumers have released its last tile (the
+// empty barrier's phase before this pass) or, given `free` barriers, once
+// this pass's phase of its `free` barrier completes (K3's stagers arrive
+// there after copying the last tile's dS out).
+template <int HD, int BK, int NQ, int STAGES, int ROWS = kRowsTC,
+          class Extra = NoExtra>
 __device__ __forceinline__ void tc_produce(
     uint8_t* sm, uint64_t* bars, const CUtensorMap* const (&stat)[NQ],
     const CUtensorMap* tm_k, const CUtensorMap* tm_v, int q0, int j_begin,
-    int j_end, int h, int b) {
-  using L = TcSmem<HD, BK, NQ, STAGES>;
+    int j_end, int h, int b, const Extra& extra = Extra(),
+    uint64_t* free = nullptr) {
+  using L = TcSmem<HD, BK, NQ, STAGES, ROWS>;
   uint64_t* full = bars + 1;
-  uint64_t* empty = bars + 1 + STAGES;
+  uint64_t* empty = free ? free : bars + 1 + STAGES;
 #pragma unroll
   for (int n = 0; n < NQ; ++n) prefetch_map(stat[n]);
   prefetch_map(tm_k);
@@ -797,12 +813,12 @@ __device__ __forceinline__ void tc_produce(
   for (int n = 0; n < NQ; ++n)
 #pragma unroll
     for (int hh = 0; hh < L::kNH; ++hh)
-      tma_load_4d(sm + n * L::kQ + hh * kRowsTC * kHalfRow, stat[n], bars,
+      tma_load_4d(sm + n * L::kQ + hh * ROWS * kHalfRow, stat[n], bars,
                   hh * 64, h, q0, b);
   for (int j = j_begin, it = 0; j <= j_end; ++j, ++it) {
     const int st = it % STAGES;
-    mbar_wait(&empty[st], ((it / STAGES) & 1) ^ 1);
-    mbar_expect_tx(&full[st], 2 * L::kKV);
+    mbar_wait(&empty[st], ((it / STAGES) & 1) ^ (free ? 0 : 1));
+    mbar_expect_tx(&full[st], 2 * L::kKV + extra.bytes());
     uint8_t* kt = sm + L::kRing + st * 2 * L::kKV;
 #pragma unroll
     for (int hh = 0; hh < L::kNH; ++hh) {
@@ -811,6 +827,7 @@ __device__ __forceinline__ void tc_produce(
       tma_load_4d(kt + L::kKV + hh * BK * kHalfRow, tm_v, &full[st], hh * 64,
                   h, j * BK, b);
     }
+    extra.load(st, j, &full[st]);
   }
 }
 
@@ -829,17 +846,17 @@ struct Ring {
   }
 };
 
-// acc (64 x BK) = A (64 x HD) B^T for a stationary A at a_base (a 128-row
-// tile, this consumer's 64 rows in it) and the key tile at b_base, both
-// K-major halves.  Issued, not waited for.
-template <int HD, int BK>
+// acc (64 x BK) = A (64 x HD) B^T for a stationary A at a_base (an
+// AROWS-row tile, this consumer's 64 rows in it) and the streamed tile at
+// b_base, both K-major halves.  Issued, not waited for.
+template <int HD, int BK, int AROWS = kRowsTC>
 __device__ __forceinline__ void tc_scores(float (&acc)[BK / 2],
                                           uint32_t a_base, uint32_t b_base) {
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
     const uint32_t off = (kk & 3) * 32;
     wgmma_ss<BK>(acc,
-                 desc_sw128(a_base + (kk >> 2) * kRowsTC * kHalfRow + off, 0,
+                 desc_sw128(a_base + (kk >> 2) * AROWS * kHalfRow + off, 0,
                             1024),
                  desc_sw128(b_base + (kk >> 2) * BK * kHalfRow + off, 0,
                             1024),
@@ -1177,14 +1194,14 @@ __global__ void __launch_bounds__(kThreadsTC, 1) flash_fwd_tc_kernel(
 
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
-    regs_dealloc_24();
+    regs_dealloc<24>();
     if (threadIdx.x == 0) {
       const CUtensorMap* const stat[1] = {&tm_q};
       tc_produce<HD, BK, 1, STAGES>(sm, bars, stat, &tm_k, &tm_v, q0,
                                     j_begin, j_end, h, b);
     }
   } else {
-    regs_alloc_240();
+    regs_alloc<240>();
     const int c = wg - 1;
     const int lane = threadIdx.x & 31;
     const int qc0 = q0 + 64 * c;
@@ -1318,14 +1335,14 @@ __global__ void __launch_bounds__(kThreadsTC, 1) flash_bwd_dq_tc_kernel(
 
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
-    regs_dealloc_24();
+    regs_dealloc<24>();
     if (threadIdx.x == 0) {
       const CUtensorMap* const stat[2] = {&tm_q, &tm_do};
       tc_produce<HD, BK, 2, STAGES>(sm, bars, stat, &tm_k, &tm_v, q0,
                                     j_begin, j_end, h, b);
     }
   } else {
-    regs_alloc_240();
+    regs_alloc<240>();
     const int c = wg - 1;
     const int lane = threadIdx.x & 31;
     const int qc0 = q0 + 64 * c;
@@ -1406,6 +1423,474 @@ __global__ void __launch_bounds__(kThreadsTC, 1) flash_bwd_dq_tc_kernel(
                      rs, ra, cl, Tn);
     }
   }
+}
+
+// ---------------------------------------------------------------- K3
+//
+// Replaces _bwd_dkv_kernel (flash_attention.py:338) for bf16, and with it
+// _bwd_dbias_kernel (:419): the pass that forms dS for dK also writes it
+// out for dbias.  Bound at the GPT-2 shape: 25.8 GFLOP (four products per
+// pair, 0.026 ms at 989 TFLOP/s) against 64 MB; at the T5 encoder's the
+// bias read (and the dbias write) make it bytes, 0.027 ms (0.031 with
+// dbias).  One block per (NC * 64 key rows, bh): the key side (k and v)
+// is loaded once by TMA and stays; query tiles of BQ rows (q and dO)
+// stream through the ring, which the producer fills: thread 0 by TMA,
+// with the tile's float32 bias [query][key] as boxes of 32 keys
+// (128-byte swizzled, so the consumers read it without bank conflicts),
+// and 96 other threads with the tile's lse and delta (and the bias where
+// TMA cannot read it: T no multiple of 4, rows along the key axis so the
+// loads coalesce).  Each consumer warpgroup owns 64 key rows, so the
+// scores are transposed, keys as the wgmma M dimension: S^T = K Q^T and
+// dP^T = V dO^T with both operands in shared memory, then dV += P^T dO
+// and dK += dS^T Q with P and dS packed to bf16 in registers as the A
+// operand and the query tile, MN-major, as B (as K1's O += P V).  S^T and
+// dP^T of tile i go to the tensor cores behind dV, dK of tile i - 1.  A
+// thread's accumulator columns are queries, so the per-query values
+// (lse, delta, the dropout row hash, 1 / n of a fully masked row) are
+// per column, and the key mask per row, loaded once.  dK is scaled by
+// sm_scale once, at the store.  The arithmetic of one pair is K2's.
+//
+// dbias (design (a), PERF.md): the consumers write each batch row's dS
+// (float32, before its bf16 rounding) over the bias tile in place; once
+// they release the stage, the producer's stagers store the tile row by row
+// (16-byte stores along the key axis) into a (B*H, Tp, Tp) float32
+// scratch, Tp = T rounded up to 64, before TMA may refill it;
+// flash_dbias_reduce_kernel then sums the B rows in a fixed order.  No
+// atomics: two runs give the same bits.
+
+// K3's query-tile width (the wgmma N of S^T and dP^T), consumer
+// warpgroups (64 key rows each) and ring depth, at hd 64 and hd 128
+// (chosen by measurement, PERF.md).
+constexpr int kDkvQTile64 = 64;
+constexpr int kDkvGroups64 = 2;
+constexpr int kDkvStages64 = 2;
+constexpr int kDkvQTile128 = 32;
+constexpr int kDkvGroups128 = 2;
+constexpr int kDkvStages128 = 3;
+
+// The registers the producer warpgroup keeps when K3 has two consumer
+// warpgroups, at hd 64 and 128 (setmaxnreg; the consumers then take what
+// it gives back), or 0 for no setmaxnreg and 168 each.  ptxas allocates
+// each side within its count, so too few spill in the producer's code
+// and too many in the consumers' (chosen by measurement, PERF.md).
+constexpr int kDkvProducerRegs64 = 80;
+constexpr int kDkvProducerRegs128 = 72;
+
+// The producer threads that stage each query tile's lse and delta (and a
+// bias TMA cannot read): warps 1-3 of the producer warpgroup (thread 0
+// issues the TMA loads).
+constexpr int kStagers = 96;
+
+// K3's shared memory: k and v stationary (ROWS rows), the ring of q and dO
+// tiles, then per stage, with the options, its float32 bias tile (see
+// bias_at), and per stage the tile's lse and delta (BQ floats each).
+template <int HD, int BQ, int ROWS, int STAGES, bool OPT>
+struct DkvSmem {
+  using Tc = TcSmem<HD, BQ, 2, STAGES, ROWS>;
+  static constexpr int kBias = Tc::kBars;
+  static constexpr int kBiasStage = OPT ? BQ * ROWS * 4 : 0;
+  static constexpr int kRows = kBias + STAGES * kBiasStage;
+  static constexpr int kBars = kRows + STAGES * 2 * BQ * 4;
+  // q_full, full, empty (tc_init_barriers), then copied[STAGES]
+  static constexpr size_t kBytes = kBars + 8 * (1 + 3 * STAGES) + 1024;
+};
+
+// The float offset of (query row r, key column c) in a K3 bias tile of BQ
+// query rows: boxes of 32 key columns, BQ rows of 128 bytes each, 128-byte
+// swizzled as TMA writes them (htt_f32_map), so a warp's reads along its
+// accumulator's columns, and its 16-byte reads along a row, hit 32
+// distinct banks.
+template <int BQ>
+__device__ __forceinline__ int bias_at(int r, int c) {
+  return ((c >> 5) * BQ + r) * 32 + ((((c & 31) >> 2) ^ (r & 7)) << 2) +
+         (c & 3);
+}
+
+// K3's producer extra: the bias tile bias[h, q0 .. q0 + BQ, kb0 .. kb0 +
+// ROWS) by TMA, ROWS / 32 boxes (when the stagers do not load it).
+template <int BQ, int ROWS>
+struct BiasTiles {
+  const CUtensorMap* map;  // null: nothing to load here
+  uint8_t* base;           // stage 0's tile
+  int stage_bytes, kb0, h;
+  __device__ __forceinline__ uint32_t bytes() const {
+    return map ? BQ * ROWS * 4 : 0;
+  }
+  __device__ __forceinline__ void load(int st, int i, uint64_t* bar) const {
+    if (!map) return;
+#pragma unroll
+    for (int x = 0; x < ROWS / 32; ++x)
+      tma_load_3d(base + st * stage_bytes + x * BQ * 128, map, bar,
+                  kb0 + 32 * x, i * BQ, h);
+  }
+};
+
+// The query tiles [*i_begin, *i_end] (width BQ) that see key rows k0 ..
+// k0 + rows - 1 (key_range mirrored): under causal from the tile of k0,
+// and with a window up to the tile of the last key's last query.
+template <int BQ>
+__device__ __forceinline__ void query_range(int k0, int rows, int Tn,
+                                            int causal, int window,
+                                            int* i_begin, int* i_end) {
+  *i_begin = 0;
+  *i_end = (Tn - 1) / BQ;
+  if (causal) {
+    *i_begin = k0 / BQ;
+    if (window > 0)
+      *i_end = min(*i_end, (k0 + rows - 1 + window - 1) / BQ);
+  }
+}
+
+// The producer's stagers.  Per query tile: once the consumers have
+// released the stage (empty), the dS they left in its bias tile (tile it -
+// STAGES, when part_bh is given) goes to the scratch row by row, 16-byte
+// stores along the key axis, and the stage is marked copied (TMA may
+// refill its bias tile); then the tile's lse and delta (0 past T) and,
+// given bias_h (a bias TMA cannot read: T no multiple of 4), its bias
+// tile (0 past T) in bias_at's layout, and each thread arrives on the
+// stage's full barrier.
+template <int HD, int BQ, int ROWS, int STAGES, bool OPT>
+__device__ __forceinline__ void dkv_stage(uint8_t* sm, uint64_t* bars,
+                                          const float* __restrict__ lse_bh,
+                                          const float* __restrict__ dl_bh,
+                                          const float* __restrict__ bias_h,
+                                          float* __restrict__ part_bh,
+                                          int kb0, int i_begin, int i_end,
+                                          int Tn, int Tp) {
+  using L = DkvSmem<HD, BQ, ROWS, STAGES, OPT>;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + STAGES;
+  uint64_t* copied = bars + 1 + 2 * STAGES;
+  const int t = threadIdx.x - 32;
+  const int n_it = i_end - i_begin + 1;
+  // 16-byte columns of the block's keys inside a scratch row
+  const int n_col4 = min(ROWS, Tp - kb0) / 4;
+  for (int it = 0; it < n_it + STAGES; ++it) {
+    const int st = it % STAGES;
+    mbar_wait(&empty[st], ((it / STAGES) & 1) ^ 1);
+    if (OPT && part_bh && it >= STAGES) {
+      const int q0 = (i_begin + it - STAGES) * BQ;
+      const float* bt =
+          reinterpret_cast<const float*>(sm + L::kBias + st * L::kBiasStage);
+      for (int x = t; x < BQ * ROWS / 4; x += kStagers) {
+        const int r = x / (ROWS / 4);
+        const int c4 = x - r * (ROWS / 4);
+        if (q0 + r < Tn && c4 < n_col4)
+          *reinterpret_cast<float4*>(part_bh + (size_t)(q0 + r) * Tp + kb0 +
+                                     4 * c4) =
+              *reinterpret_cast<const float4*>(bt + bias_at<BQ>(r, 4 * c4));
+      }
+    }
+    if (it >= n_it) continue;
+    mbar_arrive(&copied[st]);
+    const int q0 = (i_begin + it) * BQ;
+    float* rows = reinterpret_cast<float*>(sm + L::kRows) + st * 2 * BQ;
+    for (int r = t; r < BQ; r += kStagers) {
+      const bool in = q0 + r < Tn;
+      rows[r] = in ? lse_bh[q0 + r] : 0.f;
+      rows[BQ + r] = in ? dl_bh[q0 + r] : 0.f;
+    }
+    if (OPT && bias_h) {
+      // every stager has copied the tile's last dS out before any
+      // overwrites it
+      mbar_wait(&copied[st], (it / STAGES) & 1);
+      float* bt = reinterpret_cast<float*>(sm + L::kBias + st * L::kBiasStage);
+      for (int x = t; x < BQ * ROWS; x += kStagers) {
+        const int r = x / ROWS;
+        const int c = x - r * ROWS;
+        const int qp = q0 + r;
+        const int kp = kb0 + c;
+        bt[bias_at<BQ>(r, c)] =
+            qp < Tn && kp < Tn ? bias_h[(size_t)qp * Tn + kp] : 0.f;
+      }
+    }
+    mbar_arrive(&full[st]);
+  }
+}
+
+// What a K3 consumer thread needs to place its accumulator entries:
+// entry i = 4 j + 2 r + e sits at key position ka + 8 r and query
+// position q0 + 8 j + cl + e of a tile starting at query q0.
+struct DkvPairs {
+  int ka;        // key position of the thread's first row
+  int kl;        // that row's column in the block's bias tile
+  int cl;        // 2 (lane % 4)
+  int Tn, causal, window, bh;
+  float sm_scale;
+  float kv[2];   // the key mask of its two rows (0 or -1e30)
+  uint32_t seed;
+  uint32_t thresh;  // drop_thresh(rate)
+  float inv_keep;
+  bool drop;
+};
+
+// K3, one query tile: s (S^T, key rows x query columns) and dp (dP^T)
+// become P m in s (dV's operand: the dropped probability) and dS = P (dP m
+// - delta) in dp (dK's), m the dropout keep factor (1 / (1 - rate) or 0);
+// both are 0 where the pair is not attended, dS also on a masked key.  P
+// is exp2((s - lse) log2 e) of the scaled score plus bias and key mask,
+// or 1/n on a fully masked row.  lse and delta come from the stage's rows,
+// the bias from its tile bt (with the options); when ds_out, dS (float32,
+// before its bf16 rounding) goes back into the bias tile in its place.
+// The dropout hash takes (query, key), in that order.
+template <int BQ, bool OPT, bool EDGE, bool DROP>
+__device__ __forceinline__ void dkv_grads(float (&s)[BQ / 2],
+                                          float (&dp)[BQ / 2], int q0,
+                                          const DkvPairs& px,
+                                          const float* __restrict__ rows,
+                                          float* bt, bool ds_out) {
+#pragma unroll
+  for (int j = 0; j < BQ / 8; ++j) {
+    const int qc = 8 * j + px.cl;
+    const float2 ls = *reinterpret_cast<const float2*>(rows + qc);
+    const float2 dl = *reinterpret_cast<const float2*>(rows + BQ + qc);
+    const float lse[2] = {ls.x, ls.y};
+    const float dlt[2] = {dl.x, dl.y};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int qp = q0 + qc + e;
+      const uint32_t drow = DROP ? drop_row(px.seed, px.bh, qp) : 0u;
+      const float inv_n =
+          OPT ? 1.f / n_attended(qp, px.Tn, px.causal, px.window) : 0.f;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = 4 * j + 2 * r + e;
+        const int kp = px.ka + 8 * r;
+        float* at =
+            OPT && bt ? bt + bias_at<BQ>(qc + e, px.kl + 8 * r) : nullptr;
+        float p = 0.f, ds = 0.f;
+        if (!EDGE || attends(qp, kp, px.Tn, px.causal, px.window)) {
+          float sc = s[i] * px.sm_scale;
+          if (OPT) sc += (at ? *at : 0.f) + px.kv[r];
+          float m = 1.f;
+          if (DROP) m = drop_keep_at(drow, kp, px.thresh) ? px.inv_keep : 0.f;
+          p = OPT && fully_masked(lse[e]) ? inv_n
+                                          : exp2f((sc - lse[e]) * kLog2e);
+          if (!OPT || px.kv[r] == 0.f) ds = p * (dp[i] * m - dlt[e]);
+          p *= m;
+        }
+        s[i] = p;
+        dp[i] = ds;
+        if (OPT && ds_out) *at = ds;
+      }
+    }
+  }
+}
+
+template <int BQ, bool OPT>
+__device__ __forceinline__ void dkv_grads_any(float (&s)[BQ / 2],
+                                              float (&dp)[BQ / 2], int q0,
+                                              bool edge, const DkvPairs& px,
+                                              const float* rows, float* bt,
+                                              bool ds_out) {
+  if (OPT && px.drop) {
+    if (edge)
+      dkv_grads<BQ, OPT, true, true>(s, dp, q0, px, rows, bt, ds_out);
+    else
+      dkv_grads<BQ, OPT, false, true>(s, dp, q0, px, rows, bt, ds_out);
+  } else {
+    if (edge)
+      dkv_grads<BQ, OPT, true, false>(s, dp, q0, px, rows, bt, ds_out);
+    else
+      dkv_grads<BQ, OPT, false, false>(s, dp, q0, px, rows, bt, ds_out);
+  }
+}
+
+// part (B*H, Tp, Tp), when given (with a bias), receives dS of every pair
+// of the query tiles each consumer visits; bf16 dk, dv as K2's dq.
+template <int HD, int BQ, int NC, int STAGES, bool OPT>
+__global__ void __launch_bounds__(128 * (NC + 1), 1) flash_bwd_dkv_tc_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_do,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    const __grid_constant__ CUtensorMap tm_bias, int bias_tma,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+    float* __restrict__ part, int Tn, int Tp, int H, Opts op) {
+  constexpr int ROWS = 64 * NC;
+  constexpr int kPRegs = HD == 64 ? kDkvProducerRegs64 : kDkvProducerRegs128;
+  // each thread's registers at launch, and a consumer's after the
+  // producer gives back 128 * (launch - kPRegs): setmaxnreg.inc waits for
+  // registers the block does not own otherwise
+  constexpr int kLaunchRegs = 65536 / (128 * (NC + 1)) / 8 * 8;
+  constexpr int kCRegs = ((NC + 1) * kLaunchRegs - kPRegs) / NC / 8 * 8;
+  using L = DkvSmem<HD, BQ, ROWS, STAGES, OPT>;
+  using Tc = typename L::Tc;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L::kBars);
+
+  const int kb0 = blockIdx.x * ROWS;  // low key blocks have the most rows
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  int i_begin, i_end;
+  query_range<BQ>(kb0, ROWS, Tn, op.causal, op.window, &i_begin, &i_end);
+  uint64_t* copied = bars + 1 + 2 * STAGES;
+  if (threadIdx.x == 0)
+    for (int st = 0; st < STAGES; ++st) mbar_init(copied + st, kStagers);
+  tc_init_barriers<STAGES>(bars, 1 + kStagers, 4 * NC);
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    if constexpr (NC > 1 && kPRegs > 0) regs_dealloc<kPRegs>();
+    const bool tma_bias = OPT && op.bias && bias_tma;
+    if (threadIdx.x == 0) {
+      const CUtensorMap* const stat[2] = {&tm_k, &tm_v};
+      const BiasTiles<BQ, ROWS> bias{tma_bias ? &tm_bias : nullptr,
+                                     sm + L::kBias, L::kBiasStage, kb0, h};
+      tc_produce<HD, BQ, 2, STAGES, ROWS>(sm, bars, stat, &tm_q, &tm_do, kb0,
+                                          i_begin, i_end, h, b, bias, copied);
+    } else if (threadIdx.x >= 32) {
+      dkv_stage<HD, BQ, ROWS, STAGES, OPT>(
+          sm, bars, lse + (size_t)bh * Tn, delta + (size_t)bh * Tn,
+          OPT && op.bias && !tma_bias ? op.bias + (size_t)h * Tn * Tn
+                                      : nullptr,
+          OPT && op.bias && part ? part + (size_t)bh * Tp * Tp : nullptr, kb0,
+          i_begin, i_end, Tn, Tp);
+    }
+  } else {
+    if constexpr (NC > 1 && kPRegs > 0) regs_alloc<kCRegs>();
+    const int c = wg - 1;
+    const int lane = threadIdx.x & 31;
+    const int k0 = kb0 + 64 * c;
+    DkvPairs px;
+    px.ka = k0 + 16 * ((threadIdx.x & 127) >> 5) + (lane >> 2);
+    px.kl = px.ka - kb0;
+    px.cl = 2 * (lane & 3);
+    px.Tn = Tn;
+    px.causal = op.causal;
+    px.window = op.window;
+    px.bh = bh;
+    px.sm_scale = op.sm_scale;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kp = px.ka + 8 * r;
+      px.kv[r] = OPT && op.kvm && kp < Tn ? op.kvm[(size_t)b * Tn + kp] : 0.f;
+    }
+    px.seed = op.seed;
+    px.thresh = drop_thresh(op.rate);
+    px.inv_keep = op.rate > 0.f ? 1.f / (1.f - op.rate) : 1.f;
+    px.drop = op.rate > 0.f;
+    const bool ds_out = OPT && part != nullptr;
+    const Ring<STAGES> ring{bars + 1, bars + 1 + STAGES};
+    const uint32_t k_base = smem_addr(sm) + c * 64 * kHalfRow;
+    const uint32_t v_base = k_base + Tc::kQ;
+    const uint32_t ring0 = smem_addr(sm + Tc::kRing);
+    // this consumer's tiles: a contiguous part of the block's (none when
+    // its keys start at or past T)
+    int ic_begin, ic_end;
+    query_range<BQ>(k0, 64, Tn, op.causal, op.window, &ic_begin, &ic_end);
+    if (k0 >= Tn) ic_begin = i_end + 1;
+    const int it_begin = ic_begin - i_begin;
+    const int it_end = min(ic_end, i_end) - i_begin;  // inclusive
+    const int n_it = i_end - i_begin + 1;
+    for (int it = 0; it < min(it_begin, n_it); ++it) {
+      ring.wait(it);
+      ring.release(it);
+    }
+
+    float dk_acc[HD / 64][32], dv_acc[HD / 64][32];
+#pragma unroll
+    for (int hh = 0; hh < HD / 64; ++hh)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dk_acc[hh][i] = dv_acc[hh][i] = 0.f;
+
+    if (it_begin <= it_end) {
+      mbar_wait(bars, 0);
+      uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+      for (int it = it_begin; it <= it_end; ++it) {
+        const int st = it % STAGES;
+        const uint32_t q_tile = ring0 + st * 2 * Tc::kKV;
+        const uint32_t do_tile = q_tile + Tc::kKV;
+        const int q0 = (i_begin + it) * BQ;
+        float s[BQ / 2], dp[BQ / 2];
+        ring.wait(it);
+        wgmma_fence();
+        tc_scores<HD, BQ, ROWS>(s, k_base, q_tile);
+        tc_scores<HD, BQ, ROWS>(dp, v_base, do_tile);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+        if (it > it_begin) {
+          fence_acc<HD>(dk_acc);
+          fence_acc<HD>(dv_acc);
+          fence_operand(pa);
+          fence_operand(da);
+          ring.release(it - 1);
+        }
+        const float* rows =
+            reinterpret_cast<const float*>(sm + L::kRows) + st * 2 * BQ;
+        float* bt = OPT && op.bias ? reinterpret_cast<float*>(
+                                         sm + L::kBias + st * L::kBiasStage)
+                                   : nullptr;
+        dkv_grads_any<BQ, OPT>(
+            s, dp, q0, !interior<64, BQ>(q0, k0, Tn, op.causal, op.window),
+            px, rows, bt, ds_out);
+        // dS (written into the bias tile) goes out through the stagers,
+        // after this stage is released; TMA refills the tile after that
+        if (ds_out) fence_proxy_async();
+        pack_operand<BQ>(s, pa);
+        pack_operand<BQ>(dp, da);
+        wgmma_fence();
+        tc_accumulate<HD, BQ>(dv_acc, pa, do_tile);
+        tc_accumulate<HD, BQ>(dk_acc, da, q_tile);
+        wgmma_commit();
+      }
+      wgmma_wait<0>();
+      fence_acc<HD>(dk_acc);
+      fence_acc<HD>(dv_acc);
+      ring.release(it_end);
+    }
+    for (int it = max(it_end + 1, it_begin); it < n_it; ++it) {
+      ring.wait(it);
+      ring.release(it);
+    }
+    if (k0 < Tn) {
+      const size_t rs = (size_t)H * HD;
+      const size_t base = (size_t)b * Tn * rs + (size_t)h * HD;
+      const float sk[2] = {op.sm_scale, op.sm_scale};
+      const float sv[2] = {1.f, 1.f};
+      store_rows<HD>(dk_acc, sk, dk + base, rs, px.ka, px.cl, Tn);
+      store_rows<HD>(dv_acc, sv, dv + base, rs, px.ka, px.cl, Tn);
+    }
+  }
+}
+
+// dbias[h, q, k] = sum over b of part[b*H + h, q, k] for the pairs
+// attended by position, else 0, in the order b = 0, 1, ...  One thread
+// per 4 keys of one (h, q) row, 16-byte loads.  Bound by the scratch
+// read: B*H*Tp*Tp*4 bytes.
+__global__ void __launch_bounds__(128) flash_dbias_reduce_kernel(
+    const float* __restrict__ part, float* __restrict__ dbias, int B, int Tn,
+    int Tp, int H, int causal, int window) {
+  const int k4 = 4 * (blockIdx.x * 128 + threadIdx.x);
+  const int qp = blockIdx.y;
+  const int h = blockIdx.z;
+  if (k4 >= Tn) return;
+  bool any = false;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) any |= attends(qp, k4 + e, Tn, causal, window);
+  float a[4] = {0.f, 0.f, 0.f, 0.f};
+  if (any) {
+    const float* src = part + ((size_t)h * Tp + qp) * Tp + k4;
+    const size_t step = (size_t)H * Tp * Tp;
+#pragma unroll 4
+    for (int b = 0; b < B; ++b) {
+      const float4 x = *reinterpret_cast<const float4*>(src + b * step);
+      a[0] += x.x;
+      a[1] += x.y;
+      a[2] += x.z;
+      a[3] += x.w;
+    }
+  }
+  float* dst = dbias + ((size_t)h * Tn + qp) * Tn;
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (k4 + e < Tn)
+      dst[k4 + e] = attends(qp, k4 + e, Tn, causal, window) ? a[e] : 0.f;
 }
 
 template <typename Kern>
@@ -1523,37 +2008,123 @@ int bwd_dq_bf16(const void* q, const void* k, const void* v,
                                             Tn, H, op, stream);
 }
 
-template <typename T, int HD>
-int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-            const void* lse, const void* delta, void* dk, void* dv, int B,
-            int Tn, int H, Opts op, cudaStream_t stream) {
-  auto kern = op.bias || op.kvm ? flash_bwd_dkv_kernel<T, HD, true>
-                                 : flash_bwd_dkv_kernel<T, HD, false>;
+template <int HD>
+int bwd_dkv_simt(const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse, const void* delta,
+                 void* dk, void* dv, int B, int Tn, int H, Opts op,
+                 cudaStream_t stream) {
+  auto kern = op.bias || op.kvm ? flash_bwd_dkv_kernel<float, HD, true>
+                                 : flash_bwd_dkv_kernel<float, HD, false>;
   const size_t smem = dkv_smem<HD>();
   if (int e = prepare(kern, smem)) return e;
   kern<<<grid_of(B, Tn, H), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), Tn, H, op);
+      static_cast<float*>(dk), static_cast<float*>(dv), Tn, H, op);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int HD>
-int bwd_dbias(const void* q, const void* k, const void* v, const void* dout,
-              const void* lse, const void* delta, void* dbias, int B, int Tn,
-              int H, Opts op, cudaStream_t stream) {
-  if (op.bias == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = flash_bwd_dbias_kernel<T, HD>;
+template <int HD>
+int bwd_dbias_simt(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta,
+                   void* dbias, int B, int Tn, int H, Opts op,
+                   cudaStream_t stream) {
+  auto kern = flash_bwd_dbias_kernel<float, HD>;
   const size_t smem = dbias_smem<HD>();
   if (int e = prepare(kern, smem)) return e;
   const int n = (Tn + kTile - 1) / kTile;
   kern<<<dim3(n, n, H), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<float*>(dbias), B, Tn, H, op);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The rows of K3's dS scratch: T rounded up to K3's 64-row key tiles.
+int dbias_rows(int Tn) { return (Tn + 63) / 64 * 64; }
+
+template <int HD, int BQ, int NC, int STAGES>
+int bwd_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, void* dk, void* dv,
+               void* part, int B, int Tn, int H, Opts op,
+               cudaStream_t stream) {
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  CUtensorMap mq, mdo, mk, mv;
+  if (int e = bthd_map(&mq, q, B, Tn, H, HD, BQ)) return e;
+  if (int e = bthd_map(&mdo, dout, B, Tn, H, HD, BQ)) return e;
+  if (int e = bthd_map(&mk, k, B, Tn, H, HD, 64 * NC)) return e;
+  if (int e = bthd_map(&mv, v, B, Tn, H, HD, 64 * NC)) return e;
+  // the bias tile by TMA where its rows start 16-byte aligned, else by
+  // the producer's stagers
+  CUtensorMap mb;
+  memset(&mb, 0, sizeof(mb));
+  const int bias_tma = op.bias && Tn % 4 == 0 && aligned16(op.bias);
+  if (bias_tma)
+    if (int e = htt_f32_map(&mb, op.bias, H, Tn, BQ)) return e;
+  const bool opt = op.bias || op.kvm || op.rate > 0.f;
+  auto kern = opt ? flash_bwd_dkv_tc_kernel<HD, BQ, NC, STAGES, true>
+                  : flash_bwd_dkv_tc_kernel<HD, BQ, NC, STAGES, false>;
+  const size_t smem =
+      opt ? DkvSmem<HD, BQ, 64 * NC, STAGES, true>::kBytes
+          : DkvSmem<HD, BQ, 64 * NC, STAGES, false>::kBytes;
+  if (int e = prepare(kern, smem)) return e;
+  kern<<<dim3((Tn + 64 * NC - 1) / (64 * NC), B * H), 128 * (NC + 1), smem,
+         stream>>>(mq, mdo, mk, mv, mb, bias_tma,
+                   static_cast<const float*>(lse),
+                   static_cast<const float*>(delta),
+                   static_cast<__nv_bfloat16*>(dk),
+                   static_cast<__nv_bfloat16*>(dv), static_cast<float*>(part),
+                   Tn, dbias_rows(Tn), H, op);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int bwd_dkv_bf16(const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse, const void* delta,
+                 void* dk, void* dv, void* part, int B, int Tn, int H,
+                 Opts op, cudaStream_t stream) {
+  constexpr bool k64 = HD == 64;
+  return bwd_dkv_tc<HD, k64 ? kDkvQTile64 : kDkvQTile128,
+                    k64 ? kDkvGroups64 : kDkvGroups128,
+                    k64 ? kDkvStages64 : kDkvStages128>(
+      q, k, v, dout, lse, delta, dk, dv, part, B, Tn, H, op, stream);
+}
+
+int dbias_reduce(const void* part, void* dbias, int B, int Tn, int H,
+                 const Opts& op, cudaStream_t stream) {
+  const dim3 grid(((Tn + 3) / 4 + 127) / 128, Tn, H);
+  flash_dbias_reduce_kernel<<<grid, 128, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<float*>(dbias), B, Tn,
+      dbias_rows(Tn), H, op.causal, op.window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf16: K3 writing dS into part, then the batch sum.
+template <int HD>
+int bwd_dkv_dbias_bf16(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta,
+                       void* dk, void* dv, void* dbias, void* part, int B,
+                       int Tn, int H, Opts op, cudaStream_t stream) {
+  if (int e = bwd_dkv_bf16<HD>(q, k, v, dout, lse, delta, dk, dv, part, B,
+                               Tn, H, op, stream))
+    return e;
+  return dbias_reduce(part, dbias, B, Tn, H, op, stream);
+}
+
+// float32: the SIMT K3, then the SIMT K4.
+template <int HD>
+int bwd_dkv_dbias_simt(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta,
+                       void* dk, void* dv, void* dbias, void* part, int B,
+                       int Tn, int H, Opts op, cudaStream_t stream) {
+  if (int e = bwd_dkv_simt<HD>(q, k, v, dout, lse, delta, dk, dv, B, Tn, H,
+                               op, stream))
+    return e;
+  return bwd_dbias_simt<HD>(q, k, v, dout, lse, delta, dbias, B, Tn, H, op,
+                            stream);
 }
 
 Opts opts_of(const void* bias, const void* kvm, float sm_scale, int causal,
@@ -1569,16 +2140,6 @@ Opts opts_of(const void* bias, const void* kvm, float sm_scale, int causal,
   if (hd == 128) return F<128>(__VA_ARGS__);        \
   return static_cast<int>(cudaErrorInvalidValue)
 
-// Calls F<T, HD>(args...) for dtype code 0 (float32) / 1 (bfloat16) and
-// hd 64 / 128; anything else is cudaErrorInvalidValue.
-#define NNL_FLASH_DISPATCH(F, dtype, hd, ...)                        \
-  if (dtype == 0 && hd == 64) return F<float, 64>(__VA_ARGS__);      \
-  if (dtype == 0 && hd == 128) return F<float, 128>(__VA_ARGS__);    \
-  if (dtype == 1 && hd == 64) return F<__nv_bfloat16, 64>(__VA_ARGS__); \
-  if (dtype == 1 && hd == 128)                                       \
-    return F<__nv_bfloat16, 128>(__VA_ARGS__);                       \
-  return static_cast<int>(cudaErrorInvalidValue)
-
 }  // namespace
 
 extern "C" {
@@ -1588,7 +2149,7 @@ extern "C" {
 // mask (0 or -1e30) or null; causal 0 or 1; window > 0 only when causal.
 // seed is the int32 dropout seed (its bits), rate the dropout rate (0 =
 // none).  Each returns the cudaError_t of its launch (0 on success).
-// K1 and K2 run the tensor-core kernels on bfloat16 (whose q, k, v, do
+// K1, K2 and K3 run the tensor-core kernels on bfloat16 (whose q, k, v, do
 // must be 16-byte aligned) and the SIMT kernels on float32.
 int nnl_flash_fwd(const void* q, const void* k, const void* v,
                   const void* bias, const void* kvm, void* o, void* lse,
@@ -1631,20 +2192,43 @@ int nnl_flash_bwd_dkv(const void* q, const void* k, const void* v,
                       int causal, int window, float rate, int seed,
                       int dtype, void* stream) {
   const Opts op = opts_of(bias, kvm, sm_scale, causal, window, rate, seed);
-  NNL_FLASH_DISPATCH(bwd_dkv, dtype, hd, q, k, v, dout, lse, delta, dk, dv,
-                     B, Tn, H, op, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    NNL_FLASH_HD(bwd_dkv_bf16, hd, q, k, v, dout, lse, delta, dk, dv,
+                 nullptr, B, Tn, H, op, st);
+  }
+  if (dtype == 0) {
+    NNL_FLASH_HD(bwd_dkv_simt, hd, q, k, v, dout, lse, delta, dk, dv, B, Tn,
+                 H, op, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// dbias (H, T, T) float32; bias must be given.
-int nnl_flash_bwd_dbias(const void* q, const void* k, const void* v,
-                        const void* dout, const void* lse, const void* delta,
-                        const void* bias, const void* kvm, void* dbias, int B,
-                        int Tn, int H, int hd, float sm_scale, int causal,
-                        int window, float rate, int seed, int dtype,
-                        void* stream) {
+// K3 and K4 in one call: dk, dv and dbias (H, T, T) float32 = the sum over
+// the batch of dS; bias must be given.  bfloat16: K3's pass writes dS into
+// part, float32 scratch of B*H*Tp*Tp with Tp = T rounded up to 64, and
+// a second kernel sums it over the batch.  float32: the SIMT K3 and K4
+// (part unused, may be null).
+int nnl_flash_bwd_dkv_dbias(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, const void* bias,
+                            const void* kvm, void* dk, void* dv, void* dbias,
+                            void* part, int B, int Tn, int H, int hd,
+                            float sm_scale, int causal, int window,
+                            float rate, int seed, int dtype, void* stream) {
+  if (bias == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const Opts op = opts_of(bias, kvm, sm_scale, causal, window, rate, seed);
-  NNL_FLASH_DISPATCH(bwd_dbias, dtype, hd, q, k, v, dout, lse, delta, dbias,
-                     B, Tn, H, op, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    if (part == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    NNL_FLASH_HD(bwd_dkv_dbias_bf16, hd, q, k, v, dout, lse, delta, dk, dv,
+                 dbias, part, B, Tn, H, op, st);
+  }
+  if (dtype == 0) {
+    NNL_FLASH_HD(bwd_dkv_dbias_simt, hd, q, k, v, dout, lse, delta, dk, dv,
+                 dbias, part, B, Tn, H, op, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // out[s, bh, i, j] = keep(seeds[s], bh, q0 + i, k0 + j) as 0/1 bytes.

@@ -100,6 +100,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The 3-D box of `map` at coordinates (c0, c1, c2) into dst.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // ------------------------------------------------------------ wgmma
 
 // A descriptor of a 128-byte-swizzled tile at shared address addr (bytes),
@@ -161,6 +173,25 @@ __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D(64 x 32) (+)= A(64 x 16) * B(16 x 32), A and B from shared memory,
+// both K-major (descriptors da, db); scale_d = 0 overwrites D.
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -233,11 +264,19 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // ------------------------------------------------------------ warps
 
-__device__ __forceinline__ void regs_dealloc_24() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+template <int N>
+__device__ __forceinline__ void regs_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N) : "memory");
 }
-__device__ __forceinline__ void regs_alloc_240() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+template <int N>
+__device__ __forceinline__ void regs_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N) : "memory");
+}
+
+// Orders this thread's earlier generic writes to shared memory before
+// later accesses by the async proxy (TMA, wgmma).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ------------------------------------------------------------ host
@@ -289,6 +328,33 @@ inline int bthd_map(CUtensorMap* map, const void* base, int B, int T, int H,
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r =
       fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+         dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A tensor map over the (H, T, T) float32 tensor at base (a batch-shared
+// logit bias) as the 3-D array (T, T, H), innermost first, whose box is 32
+// columns (128 bytes) of `rows` consecutive rows of one head, 128-byte
+// swizzled: in shared memory, float c of row r sits in 16-byte chunk
+// (c / 4) ^ (r % 8) of the row's 128 bytes.  Rows must start 16-byte
+// aligned, so T must be a multiple of 4 (else cudaErrorInvalidValue).
+// Past T it reads zeros.
+inline int htt_f32_map(CUtensorMap* map, const void* base, int H, int T,
+                       int rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  if (T % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cuuint64_t es = sizeof(float);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(T),
+                              static_cast<cuuint64_t>(T),
+                              static_cast<cuuint64_t>(H)};
+  const cuuint64_t strides[2] = {T * es, static_cast<cuuint64_t>(T) * T * es};
+  const cuuint32_t box[3] = {32, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r =
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base),
          dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -40,6 +40,7 @@ from neuralnetworklibrary_tpu_torch.nn.transformer import (
     CausalSelfAttention,
     resolve_device,
 )
+from neuralnetworklibrary_tpu_torch.ops.flash_attention import use_flash
 
 _NEG_INF = -1e30
 _TODO = "is not ported yet (ROADMAP Queue 1)"
@@ -185,7 +186,9 @@ class TransformerSeq2Seq(nn.Module):
     before the head (tied T5: d_model ** -0.5).  ``flash_attention``: True
     sends the encoder's and the decoder's full-sequence self-attention
     through ``ops.flash_attention``, False through the einsum path, None
-    (auto) through flash exactly when the input lies on a CUDA device.
+    (auto) through flash exactly where the CUDA kernels take the call
+    (``ops.flash_attention.use_flash``: a CUDA input, float32 or bfloat16,
+    head dim 64 or 128), else through the einsum path.
     Dropout acts only in calls with ``train=True``.  Layer groups for the
     Learner: [encoder, decoder, embeddings] (``layer_group_prefixes``,
     ``head_prefixes``).  ``device`` defaults to cuda (see
@@ -270,9 +273,13 @@ class TransformerSeq2Seq(nn.Module):
         return [getattr(self, f"dec_block_{i}")
                 for i in range(self.dec_layers)]
 
-    def _flash(self, x) -> bool:
-        return (x.is_cuda if self.flash_attention is None
-                else bool(self.flash_attention))
+    def uses_flash(self, device_type: str) -> bool:
+        """Whether full-sequence self-attention of inputs on
+        ``device_type`` takes the flash path (``use_flash`` of the model's
+        ``flash_attention``, its parameters' dtype or autocast's and its
+        head dim)."""
+        return use_flash(self.flash_attention, device_type,
+                         self.word_embed.dtype, self.d_model // self.n_heads)
 
     def _rel_bias(self, table, q_pos, k_pos, bidirectional: bool):
         """Bucketed relative-position bias: q_pos (T,) or (B, T), k_pos
@@ -309,7 +316,7 @@ class TransformerSeq2Seq(nn.Module):
             bias = self._rel_bias(self.enc_rel_bias, pos, pos, True)
         if train and self.drop > 0.0:
             h = F.dropout(h, self.drop)
-        flash = self._flash(src)
+        flash = self.uses_flash(src.device.type)
         for blk in self.enc_blocks():
             h = blk(h, mask, train, bias, flash, generator)
         return self.enc_ln(h), mask
@@ -349,7 +356,7 @@ class TransformerSeq2Seq(nn.Module):
             bias = self._rel_bias(self.dec_rel_bias, q_pos, k_pos, False)
         if train and self.drop > 0.0:
             h = F.dropout(h, self.drop)
-        flash = not decode and self._flash(tgt)
+        flash = not decode and self.uses_flash(tgt.device.type)
         for i, (blk, (mk, mv)) in enumerate(zip(self.dec_blocks(), mem_kv)):
             layer = cache[f"dec_block_{i}"]["self_attn"] if decode else None
             h = blk(h, mk, mv, mem_mask, train, layer, offset, bias, flash,

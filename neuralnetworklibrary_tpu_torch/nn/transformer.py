@@ -41,7 +41,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from neuralnetworklibrary_tpu_torch.ops.flash_attention import flash_attention
+from neuralnetworklibrary_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    use_flash,
+)
 from neuralnetworklibrary_tpu_torch.ops.paged_attention import paged_attention
 
 _NEG_INF = -1e30
@@ -302,7 +305,10 @@ class TransformerLM(nn.Module):
     ``flash_attention``: True sends full-sequence attention through
     ``ops.flash_attention`` (its CUDA kernels on the card, its plain version
     on the CPU), False through the einsum path, None (auto) through flash
-    exactly when the input lies on a CUDA device.  It is read at every call.
+    exactly where the CUDA kernels take the call (``ops.flash_attention.
+    use_flash``: a CUDA input, float32 or bfloat16, head dim 64 or 128, no
+    sinks), else through the einsum path.  It is read at every call
+    (:meth:`uses_flash`).
     ``pad_token`` is kept for the data side, as in JAX.  Layer groups for
     the Learner: ``layer_group_prefixes`` (backbone, then the tied
     embedding as head) and ``head_prefixes``.
@@ -339,6 +345,7 @@ class TransformerLM(nn.Module):
         self.paged_attention = paged_attention
         self.d_ff, self.drop, self.pad_token = d_ff, drop, pad_token
         self.flash_attention = flash_attention
+        self.sinks = sinks
         self.word_embed = nn.Parameter(
             torch.empty(vocab_size, d_model, device=dev).normal_(0, 0.02))
         self.pos_embed = nn.Parameter(
@@ -366,6 +373,15 @@ class TransformerLM(nn.Module):
 
     def blocks(self):
         return [getattr(self, f"block_{i}") for i in range(self.n_layers)]
+
+    def uses_flash(self, device_type: str) -> bool:
+        """Whether a full-sequence forward of inputs on ``device_type``
+        takes the flash path (``use_flash`` of the model's
+        ``flash_attention``, its parameters' dtype or autocast's, its head
+        dim and its sinks)."""
+        return use_flash(self.flash_attention, device_type,
+                         self.word_embed.dtype, self.head_dim,
+                         sink=self.sinks)
 
     def forward(self, x, decode: bool = False, offsets=None,
                 block_table=None, cache: Optional[dict] = None,
@@ -401,8 +417,7 @@ class TransformerLM(nn.Module):
             h = h + self.pos_embed[:T][None]
         if train and self.drop > 0.0:
             h = F.dropout(h, self.drop)
-        flash = not decode and (x.is_cuda if self.flash_attention is None
-                                else bool(self.flash_attention))
+        flash = not decode and self.uses_flash(x.device.type)
         for i, blk in enumerate(self.blocks()):
             h = blk(h, cache[f"block_{i}"]["attn"] if decode else None,
                     offset, block_table, self.paged_attention, train, flash,

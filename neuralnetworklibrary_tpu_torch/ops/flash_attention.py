@@ -1,23 +1,29 @@
 """Flash attention with in-kernel dropout, forward and backward.
 
 Counterpart of ``neuralnetworklibrary_tpu/ops/flash_attention.py``.  On CUDA
-tensors :func:`flash_attention` is a ``torch.autograd.Function`` over four
+tensors :func:`flash_attention` is a ``torch.autograd.Function`` over the
 hand-written Hopper kernels in ``csrc/flash_attention.cu``: the forward
 (:func:`flash_fwd`, replacing the Pallas ``_fwd_kernel``) saves ``(o, lse)``;
 the backward computes ``delta = rowsum(dO * O)`` as a torch op and launches
-the dq kernel (:func:`flash_bwd_dq`, ``_bwd_dq_kernel``), the dk/dv kernel
-(:func:`flash_bwd_dkv`, ``_bwd_dkv_kernel``) and, when a bias needs its
-gradient, the dbias kernel (:func:`flash_bwd_dbias`, ``_bwd_dbias_kernel``).
-The kernels take causal or bidirectional attention, a causal window, a
-batch-shared (H, T, T) logit bias and a (B, T) key mask.  On bfloat16 the
-forward and the dq kernel run on the tensor cores (wgmma, fed by TMA, so
-q, k, v and dO must start on 16-byte boundaries); on float32, and for
-dk/dv and dbias on both types, the kernels compute in float32 on the CUDA
-cores.  A kernel that fails to build or launch raises.  On CPU tensors it
-runs :func:`reference_flash_attention`, the plain einsum version of the
-same function, which autograd differentiates.  There is no other fallback:
-an option the kernels do not take yet (``sink``, ``q_start``) raises
-``NotImplementedError`` on a CUDA tensor.
+the dq kernel (:func:`flash_bwd_dq`, ``_bwd_dq_kernel``) and the dk/dv
+kernel (:func:`flash_bwd_dkv`, ``_bwd_dkv_kernel``), or, when a bias needs
+its gradient, one call that also gives dbias (:func:`flash_bwd_dkv_dbias`,
+replacing ``_bwd_dkv_kernel`` and ``_bwd_dbias_kernel`` together).  The
+kernels take causal or bidirectional attention, a causal window, a
+batch-shared (H, T, T) logit bias and a (B, T) key mask, and head dims 64
+and 128.  On bfloat16 the forward, dq and dk/dv kernels run on the tensor
+cores (wgmma, fed by TMA, so q, k, v and dO must start on 16-byte
+boundaries), and dbias comes out of the dk/dv kernel's pass: it writes
+each batch row's dS to a scratch that a second kernel sums over the batch
+in a fixed order (no atomics, so two runs give the same bits).  On float32
+the kernels compute in float32 on the CUDA cores.  A kernel that fails to
+build or launch raises.  On CPU tensors it runs
+:func:`reference_flash_attention`, the plain einsum version of the same
+function, which autograd differentiates.  There is no other fallback: an
+option the kernels do not take yet (``sink``, ``q_start``) raises
+``NotImplementedError`` on a CUDA tensor, and a head dim they do not take
+``ValueError``.  Models choose the flash path for a call only where the
+kernels take it (:func:`use_flash`).
 
 The key mask enters the kernels additively, -1e30 on a masked key, as in
 JAX, so a row whose every key is masked attends uniformly over the keys its
@@ -57,8 +63,8 @@ SIGNATURES = {
     "nnl_flash_bwd_dq": ([_P] * 9 + _TAIL, _I),
     # q, k, v, do, lse, delta, bias, kvm, dk, dv
     "nnl_flash_bwd_dkv": ([_P] * 10 + _TAIL, _I),
-    # q, k, v, do, lse, delta, bias, kvm, dbias
-    "nnl_flash_bwd_dbias": ([_P] * 9 + _TAIL, _I),
+    # q, k, v, do, lse, delta, bias, kvm, dk, dv, dbias, part
+    "nnl_flash_bwd_dkv_dbias": ([_P] * 12 + _TAIL, _I),
     # seeds, n_seeds, n_bh, n_q, n_k, q0, k0, rate, out, stream
     "nnl_flash_drop_keep": ([_P] + [_I] * 6 + [_F, _P, _P], _I),
     "nnl_flash_error_string": ([_I], ctypes.c_char_p),
@@ -74,6 +80,26 @@ def _lib():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, restype
     return lib
+
+
+def use_flash(flash_attention, device_type: str, dtype, head_dim: int, *,
+              sink: bool = False, q_start: bool = False) -> bool:
+    """The models' choice of the flash path for a full-sequence forward.
+
+    ``flash_attention`` True or False is taken as given (True on a shape
+    the kernels do not take then raises in the kernels' wrapper).  None
+    (auto) picks flash exactly where the CUDA kernels take the call (a
+    CUDA device, float32 or bfloat16, head dim 64 or 128, no ``sink``, no
+    ``q_start``) and the model's own einsum path everywhere else, as the
+    JAX models' auto rule picks einsum where its kernels are not the
+    choice.  ``dtype`` is the type attention computes in: autocast's on
+    ``device_type`` where autocast is on, else the given one."""
+    if flash_attention is not None:
+        return bool(flash_attention)
+    if torch.is_autocast_enabled(device_type):
+        dtype = torch.get_autocast_dtype(device_type)
+    return (device_type == "cuda" and dtype in _DTYPE_CODE
+            and head_dim in _HEAD_DIMS and not sink and not q_start)
 
 
 def _int32(seed) -> int:
@@ -178,6 +204,50 @@ def reference_flash_attention(q, k, v, sm_scale=None, window: int = 0,
     return (o, lse) if return_lse else o
 
 
+def reference_dkv_dbias(q, k, v, do, lse, delta, sm_scale, window=0,
+                        dropout=0.0, seed=0, *, causal=True, bias=None,
+                        kvm=None):
+    """The plain version of K3's pass, in float32, from the saved lse and
+    delta as the kernels take them (same arguments as
+    :func:`flash_bwd_dkv_dbias`): (dk, dv, ds), dk and dv in q's dtype and
+    ds the (B, H, T, T) float32 dS = P * (dP - delta) of every batch row.
+    :func:`flash_bwd_dkv_dbias` sums ds over the batch for dbias.
+
+    P is exp(s - lse) of the scaled score plus bias and additive key mask,
+    or 1/n over the n keys a fully masked row (lse -1e30) sees by
+    position; dS is 0 on a masked key and P and dS 0 on a pair the
+    position does not attend.  dV takes P times the dropout keep mask over
+    (1 - rate), and dP the same mask."""
+    B, T, H, _ = q.shape
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * sm_scale
+    if bias is not None:
+        s = s + bias.float()
+    if kvm is not None:
+        s = s + kvm.float()[:, None, None, :]
+    pos = torch.arange(T, device=q.device)
+    seen = torch.ones(T, T, dtype=torch.bool, device=q.device)
+    if causal:
+        seen = pos[:, None] >= pos[None, :]
+        if window > 0:
+            seen = seen & (pos[:, None] - pos[None, :] < window)
+    lse = lse.reshape(B, H, T, 1)
+    n = seen.sum(-1, keepdim=True).float()
+    p = torch.where(lse <= -1e29, 1.0 / n, torch.exp(s - lse))
+    p = torch.where(seen, p, torch.zeros((), device=q.device))
+    m = 1.0
+    if dropout > 0.0:
+        m = (_keep_grid(seed, B, H, T, dropout, q.device).float()
+             / (1.0 - dropout))
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf) * m
+    ds = p * (dp - delta.reshape(B, H, T, 1))
+    if kvm is not None:
+        ds = ds.masked_fill((kvm != 0)[:, None, None, :], 0.0)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p * m, dof)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * sm_scale
+    return dk.to(q.dtype), dv.to(q.dtype), ds
+
+
 # ------------------------------------------------------------ kernels
 
 
@@ -275,7 +345,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, sm_scale, window=0, dropout=0.0,
 def flash_bwd_dkv(q, k, v, do, lse, delta, sm_scale, window=0, dropout=0.0,
                   seed=0, *, causal=True, bias=None, kvm=None):
     """K3: (dk, dv), with the same inputs as :func:`flash_bwd_dq`.
-    ``flash_bwd_dkv.launches`` counts launches."""
+    ``flash_bwd_dkv.launches`` counts K3's launches, those of
+    :func:`flash_bwd_dkv_dbias` included."""
     ptrs = _bwd_inputs(q, k, v, do, lse, delta)
     args = _shape_args(q, sm_scale, causal, window, dropout, seed)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -286,21 +357,57 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, sm_scale, window=0, dropout=0.0,
     return dk, dv
 
 
-def flash_bwd_dbias(q, k, v, do, lse, delta, sm_scale, window=0,
-                    dropout=0.0, seed=0, *, causal=True, bias, kvm=None):
-    """K4: dbias (H, T, T) float32 = the sum over the batch of
-    P * (dP - delta), with the same inputs as :func:`flash_bwd_dq` and the
-    bias required.  ``flash_bwd_dbias.launches`` counts launches."""
+def dbias_rows(T: int) -> int:
+    """Rows (and row length) of K3's per-batch dS scratch: T rounded up to
+    its 64-row key tiles."""
+    return -(-T // 64) * 64
+
+
+def flash_bwd_dkv_dbias(q, k, v, do, lse, delta, sm_scale, window=0,
+                        dropout=0.0, seed=0, *, causal=True, bias, kvm=None):
+    """K3 and K4 in one call: (dk, dv, dbias), dbias (H, T, T) float32 the
+    sum over the batch of P * (dP - delta); the inputs of
+    :func:`flash_bwd_dq`, with the bias required.
+
+    bfloat16: K3's pass on the tensor cores also writes each batch row's dS
+    (float32) into a (B*H, Tp, Tp) scratch (Tp = :func:`dbias_rows`), and a
+    second kernel sums it over the batch in a fixed order; float32: the
+    SIMT K3, then the SIMT K4.  Each call counts one launch in
+    ``flash_bwd_dkv.launches`` (K3) and one in ``flash_bwd_dbias.launches``
+    (the batch sum, or the SIMT K4).  On CPU tensors it runs
+    :func:`reference_dkv_dbias` and sums its dS."""
     if bias is None:
-        raise ValueError("flash_bwd_dbias needs the bias")
+        raise ValueError("flash_bwd_dkv_dbias needs the bias")
+    if q.device.type == "cpu":
+        dk, dv, ds = reference_dkv_dbias(
+            q, k, v, do, lse, delta, sm_scale, window, dropout, seed,
+            causal=causal, bias=bias, kvm=kvm)
+        return dk, dv, ds.sum(0)
     ptrs = _bwd_inputs(q, k, v, do, lse, delta)
     args = _shape_args(q, sm_scale, causal, window, dropout, seed)
+    B, T, H, _ = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
     dbias = torch.empty_like(bias)
+    part = (torch.empty(B * H * dbias_rows(T) ** 2, dtype=torch.float32,
+                        device=q.device)
+            if q.dtype == torch.bfloat16 else None)
     with torch.cuda.device(q.device):
-        _run(_lib().nnl_flash_bwd_dbias, *ptrs, *_option_ptrs(q, bias, kvm),
-             dbias.data_ptr(), *args)
+        _run(_lib().nnl_flash_bwd_dkv_dbias, *ptrs,
+             *_option_ptrs(q, bias, kvm), dk.data_ptr(), dv.data_ptr(),
+             dbias.data_ptr(), None if part is None else part.data_ptr(),
+             *args)
+    flash_bwd_dkv.launches += 1
     flash_bwd_dbias.launches += 1
-    return dbias
+    return dk, dv, dbias
+
+
+def flash_bwd_dbias(q, k, v, do, lse, delta, sm_scale, window=0,
+                    dropout=0.0, seed=0, *, causal=True, bias, kvm=None):
+    """K4: dbias (H, T, T) float32 alone, from :func:`flash_bwd_dkv_dbias`
+    (whose dk and dv it drops, and whose launches it counts)."""
+    return flash_bwd_dkv_dbias(q, k, v, do, lse, delta, sm_scale, window,
+                               dropout, seed, causal=causal, bias=bias,
+                               kvm=kvm)[2]
 
 
 flash_fwd.launches = 0
@@ -347,9 +454,10 @@ class _FlashAttention(torch.autograd.Function):
         kw = dict(causal=ctx.causal, bias=bias, kvm=kvm)
         inputs = (q, k, v, do, lse, delta, *ctx.args)
         dq = flash_bwd_dq(*inputs, **kw)
-        dk, dv = flash_bwd_dkv(*inputs, **kw)
-        dbias = (flash_bwd_dbias(*inputs, **kw) if ctx.needs_input_grad[3]
-                 else None)
+        if ctx.needs_input_grad[3]:
+            dk, dv, dbias = flash_bwd_dkv_dbias(*inputs, **kw)
+        else:
+            (dk, dv), dbias = flash_bwd_dkv(*inputs, **kw), None
         return dq, dk, dv, dbias, None, None, None, None, None, None
 
 
@@ -368,8 +476,9 @@ def flash_attention(q, k, v, sm_scale=None, window: int = 0,
     attended.  ``dropout`` in (0, 1) drops attention probabilities with
     the hash mask of seed ``dropout_seed`` (an int32, or anything ``int()``
     takes).  T is any length.  On CUDA tensors the kernels take float32 or
-    bfloat16 and head dims 64 and 128; ``sink`` and ``q_start`` raise
-    NotImplementedError there (the CPU plain version takes them).
+    bfloat16 and head dims 64 and 128 (another raises ValueError); ``sink``
+    and ``q_start`` raise NotImplementedError there (the CPU plain version
+    takes them).
     """
     B, T, H, hd = q.shape
     if k.shape != q.shape or v.shape != q.shape:
