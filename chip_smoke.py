@@ -11,8 +11,13 @@ name and power limit from nvidia-smi):
 - kernel: each kernel against its plain PyTorch version on the card.  The
           paged decode kernel over dtypes, head layouts, block sizes,
           windows, sinks, offset edges and shared table rows, and at the
-          serving path's own shape.  The flash kernels (forward, dq, dk/dv)
-          over float32 and bf16, hd 64 and 128, window 0 and > 0, dropout
+          serving path's own shape; then where its split of the sequence
+          matters: 4,096 positions at B 1 and 3, G 1, 4 and 8, f32, bf16
+          and int8 pools, offsets at the shares' edges, windows under one
+          share, sinks over many shares, S from 1 to more than the
+          chunks, clamped table entries, and two calls bit for bit.
+          The flash kernels (forward, dq, dk/dv) over float32 and bf16,
+          hd 64 and 128, window 0 and > 0, dropout
           0 and 0.1, at T 1024 and at a T that is no multiple of the tile,
           and at the training path's own shape; and the kernels' dropout
           hash against the plain one bit for bit.  Then the edges of the
@@ -73,14 +78,22 @@ name and power limit from nvidia-smi):
           call (Timer); the median and the spread (min, max) of the reps.
           Library yardsticks: SDPA with its backend pinned, cuDNN's LSTM;
           for SDPA's backward also the events without the spin and the
-          profiler's mean.  K1-K4 also at the T5 encoder's shape.
+          profiler's mean.  K1-K4 also at the T5 encoder's shape.  K5 at
+          six rows (K5_TIMING): the serving shape at offset 511, B 32 at
+          1023, B 1 at 1023, the serve run's offsets, Llama-3-8B's heads
+          at 4,096 positions, and int8 pools; its yardstick is SDPA on
+          the strip cut to the live positions with the kv heads shared,
+          and beside it SDPA on the whole masked strip.
 
 --profile adds torch.profiler breakdowns of one more serve run and of one
-more train step of each model: device time by kernel and, for the train
-steps, the host ops with the most host time of their own.  --tile-sweep
-adds K1 and K2 built with other key-tile widths and ring depths, and K3
-with other query-tile widths, consumer warpgroups and ring depths, timed
-at hd 64 and 128 (the measurement behind the shipped constants).
+more train step of each model: device time by kernel (for the serve run
+also every K5 kernel by name) and, for the train steps, the
+host ops with the most host time of their own.  --tile-sweep adds K5 at S
+in {1, chosen, 2 x chosen} with its warps and half of them, with its
+staging or its arithmetic removed, and under a read flush, K1 and K2 built
+with other key-tile widths and ring depths, and K3 with other query-tile
+widths, consumer warpgroups and ring depths, timed at hd 64 and 128 (the
+measurement behind the shipped constants).
 
 Then a "kernels" line with every ported kernel, and last the line
 {"ok": true, "device": {...}}.  Any failure exits non-zero; no phase
@@ -103,6 +116,36 @@ import torch
 
 REPLACES = "neuralnetworklibrary_tpu/ops/paged_attention.py:68"
 SOURCE = "neuralnetworklibrary_tpu_torch/csrc/paged_attention.cu"
+K5_DESIGN = ("split-sequence (flash-decoding), SIMT f32: grid (Hkv x head "
+             "groups, B, S), S from shapes and occupancy on the host (one "
+             "wave); a cp.async ring of 32-position chunks in 16-byte "
+             "pieces, block-table entries read a stage ahead; R lanes per "
+             "row, shuffle dots for all heads of the kv head, 4 warps (8 "
+             "for 4-8 heads); the last block of each (slot, head group), by "
+             "an integer ticket, merges the S partials in split order "
+             "(paged_split_kernel, one launch)")
+# K5's split cases: (label, H, Hkv, hd, pool dtype, q dtype), each at MB
+# 128, bs 32 (4,096 positions), B 1 and 3
+K5_SPLIT_CONFIGS = (
+    ("g1_bf16", 12, 12, 64, torch.bfloat16, torch.bfloat16),
+    ("g1_f32", 12, 12, 64, torch.float32, torch.float32),
+    ("g4_bf16", 32, 8, 128, torch.bfloat16, torch.bfloat16),
+    ("g8_bf16", 64, 8, 128, torch.bfloat16, torch.bfloat16),
+    ("g8_f32", 64, 8, 128, torch.float32, torch.float32),
+    ("int8_f32q", 12, 12, 64, torch.int8, torch.float32),
+    ("int8_g4_f32q", 32, 8, 128, torch.int8, torch.float32),
+    ("int8_bf16q", 32, 8, 128, torch.int8, torch.bfloat16))
+# K5's timing rows: (label, B, H, Hkv, hd, MB, pool dtype, offset; None:
+# drawn in 32-320, as phase_serve's requests reach them), all at bs 32
+# with bf16 q
+K5_TIMING = (
+    ("slice", 8, 12, 12, 64, 32, torch.bfloat16, 511),
+    ("long_context", 32, 12, 12, 64, 32, torch.bfloat16, 1023),
+    ("b1", 1, 12, 12, 64, 32, torch.bfloat16, 1023),
+    ("serve_mix", 8, 12, 12, 64, 32, torch.bfloat16, None),
+    ("gqa", 16, 32, 8, 128, 128, torch.bfloat16, 4095),
+    ("int8", 8, 12, 12, 64, 32, torch.int8, 511))
+K5_SWEEP = ("slice", "b1", "gqa")   # and long_context for the ablations
 FLASH_SOURCE = "neuralnetworklibrary_tpu_torch/csrc/flash_attention.cu"
 FLASH_REPLACES = {
     "flash_fwd": "neuralnetworklibrary_tpu/ops/flash_attention.py:119",
@@ -123,6 +166,15 @@ FLASH_DESIGN = {"flash_fwd": "wgmma+TMA, bf16 (SIMT f32 for float32)",
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM (hopper-kernels guide, table 1)
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# K5's split cases, besides TOL: elementwise |got - want| <= atol +
+# rtol*|want| against the plain version and the split algorithm, both in
+# float32 on the same inputs.  float32 q: only the order of the sums
+# differs.  bf16 q: the kernel computes in float32 and rounds the output
+# to bf16, at most 2**-8 of the value (the rtol is twice that); the atol
+# covers the order of the float32 sums.  An output over 4,096 live
+# positions of unit-normal rows is ~0.03, so TOL alone would let a dropped
+# or mis-scaled share pass; this limit holds such a case to ~a tenth of it.
+K5_SPLIT_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-4, 2 ** -7)}
 # flash kernels, elementwise |got - want| <= atol + rtol*|want| against the
 # plain version in float32 on the same inputs.  float32: only the order of
 # the sums differs.  bf16: the kernels compute in float32 from bf16 inputs
@@ -193,11 +245,27 @@ def fail(msg):
 
 
 def paged_case(rng, B, H, Hkv, hd, bs, MB, pool_dtype, q_dtype, offsets,
-               share=False, N=None):
-    """Random q, pools, table and offsets on the card; row 0 is trash."""
+               share=False, N=None, on_card=False):
+    """Random q, pools, table and offsets on the card; row 0 is trash.
+    on_card: draw q, the pools and scales on the card from a generator
+    seeded by ``rng`` (large pools; the same values for the same seed)."""
     N = N or B * MB + 1
     q = torch.from_numpy(rng.normal(0, 1, (B, H, hd)).astype(np.float32))
-    if pool_dtype == torch.int8:
+    if on_card:
+        gen = torch.Generator(device="cuda").manual_seed(
+            int(rng.integers(0, 2 ** 31)))
+        if pool_dtype == torch.int8:
+            pk, pv = (torch.randint(-127, 128, (N, bs, Hkv, hd),
+                                    generator=gen, device="cuda",
+                                    dtype=torch.int8) for _ in range(2))
+            sk, sv = (torch.empty(N, bs, Hkv, device="cuda")
+                      .uniform_(0.001, 0.02, generator=gen)
+                      for _ in range(2))
+        else:
+            pk, pv = (torch.randn(N, bs, Hkv, hd, generator=gen,
+                                  device="cuda") for _ in range(2))
+            sk = sv = None
+    elif pool_dtype == torch.int8:
         pk = torch.from_numpy(rng.integers(-127, 128, (N, bs, Hkv, hd),
                                            dtype=np.int8))
         pv = torch.from_numpy(rng.integers(-127, 128, (N, bs, Hkv, hd),
@@ -249,19 +317,22 @@ class Timer:
     inside the window, as it did for SDPA's backward before).
     ``profiled_ms`` is a cross-check: the mean over the reps of the device
     time torch.profiler sums over their kernels, in one profiler run, without
-    the flush."""
+    the flush.  ``flush="read"`` reads the 512 MB instead of writing it, so
+    the timed call finds no dirty lines to write back."""
 
     SPIN_CYCLES = 10_000_000     # ~5 ms at 1.98 GHz
 
-    def __init__(self):
+    def __init__(self, flush="write"):
         self.flush = torch.empty(128 << 20, dtype=torch.int32, device="cuda")
+        self.flush_op = {"write": self.flush.zero_,
+                         "read": self.flush.sum}[flush]
 
     def stats(self, fn, reps=30, warmup=3, spin=True):
         for _ in range(warmup):
             fn()
         pairs = []
         for _ in range(reps):
-            self.flush.zero_()
+            self.flush_op()
             if spin:
                 torch.cuda._sleep(self.SPIN_CYCLES)
             s = torch.cuda.Event(enable_timing=True)
@@ -306,13 +377,15 @@ TIMED_KEYS = ("ms", "ms_spread", "plain_ms", "plain_ms_spread", "bound_ms",
 
 def timed_row(kernel, plain, library, bound):
     """A timing row from the stats of the kernel, its plain version and the
-    library call, and (bound_ms, bound_by)."""
+    library call (None where no one call computes the function), and
+    (bound_ms, bound_by)."""
     return {"ms": kernel["ms"], "ms_spread": [kernel["min"], kernel["max"]],
             "plain_ms": plain["ms"],
             "plain_ms_spread": [plain["min"], plain["max"]],
             "bound_ms": bound[0], "bound_by": bound[1],
-            "library_ms": library["ms"],
-            "library_ms_spread": [library["min"], library["max"]]}
+            "library_ms": None if library is None else library["ms"],
+            "library_ms_spread": None if library is None
+            else [library["min"], library["max"]]}
 
 
 def paged_bound(case):
@@ -366,8 +439,12 @@ def kernel_name(mangled):
                 ident = s[p + len(n):p + len(n) + int(n)]
                 args.append("bf16" if ident == "__nv_bfloat16" else ident)
                 p += len(n) + int(n)
+            elif re.match(r"S[0-9A-Z]*_", s[p:]):
+                # a substitution: here, the type named just before
+                args.append(args[-1] if args else "?")
+                p += re.match(r"S[0-9A-Z]*_", s[p:]).end()
             else:
-                args.append({"f": "f32"}.get(s[p], s[p]))
+                args.append({"f": "f32", "a": "i8"}.get(s[p], s[p]))
                 p += 1
     return f"{name}<{','.join(args)}>" if args else name
 
@@ -463,7 +540,115 @@ def phase_kernel(seed):
                                         "bfloat16": TOL[torch.bfloat16],
                                         "int8": TOL[torch.float32]},
           "serving_shape_max_abs_err": main_err})
+    paged_split_checks(rng)
     return main_err
+
+
+def split_boundaries(S, n_chunks):
+    """First chunks of shares 1..S-1 when n_chunks chunks are cut in S."""
+    return sorted({s * n_chunks // S for s in range(1, S)})
+
+
+def paged_split_checks(rng):
+    """K5 where its shares matter, each call held against the plain version
+    and the split algorithm in plain PyTorch at TOL and K5_SPLIT_TOL (the
+    table clamped for the plain version): for each of K5_SPLIT_CONFIGS, B 1
+    and 3 at MB 128, bs 32, with the wrapper's S and with S 1, 2, 7 and
+    129 (more shares than chunks): offsets 0, each boundary of the chosen
+    S's shares of the full range +-1, and the last position; windows 1, bs
+    + 3 and 40 (under one share, so most shares are empty); a sink with
+    many shares; table entries out of range (clamped); and two calls on
+    the same inputs, which must give the same bits."""
+    from neuralnetworklibrary_tpu_torch.ops import paged_attention as pa
+
+    bs, MB = 32, 128
+    npos = MB * bs
+    worst, worst_split, worst_share, splits_used = {}, {}, {}, {}
+    n_cases, identical = 0, True
+    for label, H, Hkv, hd, pdt, qdt in K5_SPLIT_CONFIGS:
+        base = paged_case(rng, 3, H, Hkv, hd, bs, MB, pdt, qdt,
+                          [npos - 1] * 3, on_card=True)
+        N = base["pool_k"].shape[0]
+        chosen = {B: pa.splits_for(base["q"][:B], base["pool_k"],
+                                   base["block_table"][:B]) for B in (1, 3)}
+        splits_used[label] = {f"B{B}": S for B, S in chosen.items()}
+
+        def run(offs, window=0, sink=None, splits=None, wild=False):
+            nonlocal n_cases
+            B = len(offs)
+            tbl = base["block_table"][:B].clone()
+            for b, o in enumerate(offs):
+                tbl[b, min(o, npos - 1) // bs + 1:] = 0
+            if wild:   # out of range both ways, inside the live ranges
+                tbl[:, 0] = -5
+                tbl[:, MB // 3] = N + 9
+            case = dict(base, q=base["q"][:B].contiguous(),
+                        block_table=tbl,
+                        offsets=torch.tensor(offs, dtype=torch.int32,
+                                             device="cuda"))
+            S = splits or chosen[B]
+            kw = dict(window=window, sink=sink)
+            got = (pa._launch(**case, splits=S, **kw) if splits
+                   else pa.paged_attention(**case, **kw))
+            ref = as_f32(case)
+            want_split = pa.split_paged_attention_reference(**ref, **kw,
+                                                            splits=S)
+            ref["block_table"] = tbl.clamp(0, N - 1)
+            want = pa.reference_paged_attention(**ref, **kw)
+            err = float((got.float() - want).abs().max())
+            worst[label] = max(worst.get(label, 0.0), err)
+            worst_split[label] = max(
+                worst_split.get(label, 0.0),
+                float((got.float() - want_split.float()).abs().max()))
+            atol, rtol = K5_SPLIT_TOL[qdt]
+            used = max(float(((got.float() - w.float()).abs()
+                              / (atol + rtol * w.float().abs())).max())
+                       for w in (want, want_split))
+            worst_share[label] = max(worst_share.get(label, 0.0), used)
+            if not (err <= TOL[qdt] and used <= 1.0):
+                fail(f"paged_attention split case {label} offsets {offs} "
+                     f"window {window} sink {sink is not None} S {S} wild "
+                     f"{wild}: max|err| {err} (TOL {TOL[qdt]}), "
+                     f"{used:.3g} of atol {atol} + rtol {rtol}*|want|")
+            n_cases += 1
+            return got
+
+        for B in (3, 1):
+            edges = [0, npos - 1]
+            for cb in split_boundaries(chosen[B], MB * bs // pa.CHUNK):
+                edges += [cb * pa.CHUNK - 1, cb * pa.CHUNK,
+                          cb * pa.CHUNK + 1]
+            if B == 1:
+                edges = edges[:5] + edges[-3:]
+            edges += [int(x) for x in rng.integers(0, npos, -len(edges) % B)]
+            for i in range(0, len(edges), B):
+                run(edges[i:i + B])
+        mixed = [npos - 1, npos // 2 - 48, 100]
+        for window in (1, bs + 3, 40):
+            run(mixed, window=window)
+            run([npos - 1], window=window)
+        sink = torch.from_numpy(rng.normal(0, 1, H).astype(np.float32)).cuda()
+        run([npos - 1], sink=sink)
+        run([npos // 3], sink=sink, window=40)
+        run(mixed, sink=sink, splits=npos // pa.CHUNK)
+        for S in (1, 2, 7, npos // pa.CHUNK + 1):
+            run([int(x) for x in rng.integers(0, npos, 3)], splits=S)
+        run([npos - 1, npos * 3 // 4, npos + 100], wild=True)
+        offs = [int(x) for x in rng.integers(0, npos, 3)]
+        a, b = run(offs), run(offs)
+        identical &= bool(torch.equal(a, b))
+    torch.cuda.synchronize()
+    emit({"phase": "kernel", "kernel": "paged_attention_splits",
+          "cases": n_cases, "bs": bs, "MB": MB, "splits": splits_used,
+          "max_abs_err": worst, "tol": {"float32 q": TOL[torch.float32],
+                                        "bfloat16 q": TOL[torch.bfloat16]},
+          "max_abs_err_vs_split_reference": worst_split,
+          "elementwise_tol": {str(k).replace("torch.", "") + " q": v
+                              for k, v in K5_SPLIT_TOL.items()},
+          "worst_share_of_elementwise_tol": worst_share,
+          "two_calls_bit_identical": identical})
+    if not identical:
+        fail("two paged_attention calls on the same inputs differ")
 
 
 def flash_case(rng, B, T, H, hd, dtype):
@@ -884,7 +1069,10 @@ def profile_serve(engine_fn, requests):
           "device_busy_share": total_ms / (wall * 1e3),
           "top_kernels": [{"name": k[:90], "ms": us / 1e3, "calls": n,
                            "share": us / 1e3 / total_ms}
-                          for us, k, n in rows[:12]]})
+                          for us, k, n in rows[:12]],
+          "paged_kernels": [{"name": k[:160], "ms": us / 1e3, "calls": n,
+                             "share": us / 1e3 / total_ms}
+                            for us, k, n in rows if "paged_" in k]})
 
 
 def phase_serve(seed, profile=False):
@@ -1332,45 +1520,199 @@ def phase_flash_timing(seed):
     return rows
 
 
-def phase_timing(seed):
+def k5_timing_case(rng, label):
+    """The inputs of K5's timing row ``label`` (K5_TIMING) and its
+    description."""
+    _, B, H, Hkv, hd, MB, pdt, off = next(r for r in K5_TIMING
+                                          if r[0] == label)
+    offs = ([off] * B if off is not None
+            else [int(x) for x in rng.integers(32, 321, B)])
+    case = paged_case(rng, B, H, Hkv, hd, 32, MB, pdt, torch.bfloat16, offs,
+                      on_card=B * MB * Hkv * hd > 1 << 20)
+    desc = {"shape": label, "B": B, "H": H, "Hkv": Hkv, "hd": hd, "bs": 32,
+            "MB": MB, "offsets": off if off is not None else offs,
+            "dtype": "bfloat16",
+            "pool_dtype": str(pdt).replace("torch.", "")}
+    return case, desc
+
+
+def sdpa_yardsticks(timer, case):
+    """K5's library yardsticks, SDPA on the strip gathered beforehand (not
+    timed): (the strip cut to the longest live range, with a mask only
+    where the offsets differ and the kv heads shared by enable_gqa, which
+    reads what K5 reads; the whole strip of MB * bs positions with a mask
+    and the kv heads repeated, PR 6's yardstick), each as Timer.stats."""
     import torch.nn.functional as F
 
-    from neuralnetworklibrary_tpu_torch.ops.paged_attention import (
-        paged_attention,
-        reference_paged_attention,
-    )
+    q, pk, pv = case["q"], case["pool_k"], case["pool_v"]
+    B, H, hd = q.shape
+    _, bs, Hkv, _ = pk.shape
+    Mp = case["block_table"].shape[1] * bs
+    tbl = case["block_table"].long()
+    off = case["offsets"].long()
+    qd = q[:, :, None, :]
+    L = int(off.max()) + 1
+    kd, vd = (pool[tbl].reshape(B, Mp, Hkv, hd)[:, :L].transpose(1, 2)
+              .contiguous() for pool in (pk, pv))
+    mask = (None if bool((off == off[0]).all()) else
+            torch.arange(L, device="cuda")[None, None, None, :]
+            <= off[:, None, None, None])
+    cut = timer.stats(lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask, enable_gqa=H != Hkv))
+    kd, vd = (pool[tbl].reshape(B, Mp, Hkv, hd)
+              .repeat_interleave(H // Hkv, dim=2).transpose(1, 2)
+              for pool in (pk, pv))
+    mask = (torch.arange(Mp, device="cuda")[None, None, None, :]
+            <= off[:, None, None, None])
+    full = timer.stats(lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask))
+    return cut, full
+
+
+def phase_timing(seed):
+    """K5 at each row of K5_TIMING: the kernel through the wrapper (its S
+    as the wrapper chooses it), the plain version, and as the yardsticks
+    the port never calls, SDPA on the strip gathered beforehand
+    (sdpa_yardsticks: library_ms the one that reads what K5 reads,
+    library_full_strip_ms PR 6's), except for int8 pools, where no one call
+    computes the function."""
+    from neuralnetworklibrary_tpu_torch.ops import paged_attention as pa
 
     rng = np.random.default_rng(seed + 1)
     timer = Timer()
-    rows = []
-    for label, B, off in (("slice", 8, 511), ("long_context", 32, 1023)):
-        case = paged_case(rng, B, 12, 12, 64, 32, 32, torch.bfloat16,
-                          torch.bfloat16, [off] * B)
-        # yardstick only, never called by the port: SDPA over the dense
-        # strip gathered beforehand (the gather is not timed)
-        Mp = 32 * 32
-        tbl = case["block_table"].long()
-        kd = case["pool_k"][tbl].reshape(B, Mp, 12, 64).transpose(1, 2)
-        vd = case["pool_v"][tbl].reshape(B, Mp, 12, 64).transpose(1, 2)
-        qd = case["q"][:, :, None, :]
-        mask = (torch.arange(Mp, device="cuda")[None, None, None, :]
-                <= case["offsets"].long()[:, None, None, None])
+    rows = {}
+    for label, *_ in K5_TIMING:
+        case, desc = k5_timing_case(rng, label)
+        library = full = None
+        if case["pool_k"].dtype != torch.int8:
+            library, full = sdpa_yardsticks(timer, case)
         times = timed_row(
-            timer.stats(lambda: paged_attention(**case)),
-            timer.stats(lambda: reference_paged_attention(**case)),
-            timer.stats(lambda: F.scaled_dot_product_attention(
-                qd, kd, vd, attn_mask=mask)),
-            paged_bound(case))
-        row = {"shape": label, "B": B, "H": 12, "Hkv": 12, "hd": 64,
-               "bs": 32, "offsets": off, "dtype": "bfloat16", **times,
-               "library": "F.scaled_dot_product_attention on the "
-                          "pre-gathered strip (yardstick only)",
+            timer.stats(lambda: pa.paged_attention(**case)),
+            timer.stats(lambda: pa.reference_paged_attention(**case)),
+            library, paged_bound(case))
+        row = {**desc, "splits": pa.splits_for(case["q"], case["pool_k"],
+                                               case["block_table"]),
+               **times,
+               "library": None if library is None else
+               "F.scaled_dot_product_attention on the pre-gathered strip cut "
+               "to the longest live range, kv heads by enable_gqa "
+               "(yardstick only)",
+               "library_full_strip_ms": None if full is None else full["ms"],
+               "library_full_strip_ms_spread": None if full is None
+               else [full["min"], full["max"]],
+               "share_of_bound": times["bound_ms"] / times["ms"],
                "achieved_GBps": times["bound_ms"] / times["ms"]
                * HBM_BYTES_PER_S / 1e9
                if times["bound_by"] == "bytes" else None}
-        emit({"phase": "timing", **row})
-        rows.append(row)
+        emit({"phase": "timing", "kernel": "paged_attention", **row})
+        rows[label] = row
+        del case
     return rows
+
+
+# K5 sweep variants: edited copies of csrc/paged_attention.cu, each a list
+# of (text in the source, its replacement).  half_warps: 2 warps for blocks
+# of 1-2 heads, 4 for 4-8; no_staging: nothing staged (the arithmetic runs
+# on whatever shared memory holds); no_arithmetic: every chunk staged and
+# waited for, no scores or PV.  The last two bound what each part costs.
+K5_SWEEP_VARIANTS = {
+    "half_warps": [("constexpr int kWarps = 4;", "constexpr int kWarps = 2;"),
+                   ("constexpr int kWarpsGqa = 8;",
+                    "constexpr int kWarpsGqa = 4;")],
+    "no_staging": [("    if (j < nch) stage_chunk(j);\n", ""),
+                   ("    if (i + p.stages - 1 < nch) stage_chunk(i + p.stages"
+                    " - 1);\n", "")],
+    "no_arithmetic": [("    // scores of the warp's rows, and their max\n",
+                       "    if (p.window == -12345) {  // never\n"),
+                      ("    // the slot of chunk i + stages is chunk i's",
+                       "    }\n    // the slot of chunk i + stages is chunk "
+                       "i's")]}
+
+
+def phase_paged_sweep(seed):
+    """K5 at S in {1, chosen, 2 x chosen} as shipped and with half its
+    warps, and the no_staging / no_arithmetic variants at the chosen S
+    (K5_SWEEP_VARIANTS, each built into _build/), on the rows K5_SWEEP and
+    long_context; then at long_context, K5 and SDPA without a mask on the
+    gathered strip, under the Timer's write flush and a read flush."""
+    import ctypes
+    import subprocess as sp
+
+    import torch.nn.functional as F
+
+    from neuralnetworklibrary_tpu_torch.kernels import build
+    from neuralnetworklibrary_tpu_torch.ops import paged_attention as pa
+
+    src = (build.CSRC / "paged_attention.cu").read_text()
+    procs = {}
+    for name, edits in K5_SWEEP_VARIANTS.items():
+        text = src
+        for old, new in edits:
+            if text.count(old) != 1:
+                fail(f"K5 sweep: {old!r} is not in the source once")
+            text = text.replace(old, new)
+        d = build.BUILD / f"sweep_k5_{name}"
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "paged_attention.cu").write_text(text)
+        procs[name] = sp.Popen([build.nvcc(), *build.FLAGS, "-o",
+                                str(d / "lib.so"),
+                                str(d / "paged_attention.cu")],
+                               stdout=sp.PIPE, stderr=sp.STDOUT, text=True)
+    libs = {"shipped": pa._lib()}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"K5 sweep variant {name} did not build:\n{log[-3000:]}")
+        libs[name] = ctypes.CDLL(str(build.BUILD / f"sweep_k5_{name}"
+                                     / "lib.so"))
+        for n, (argtypes, restype) in pa.SIGNATURES.items():
+            fn = getattr(libs[name], n)
+            fn.argtypes, fn.restype = argtypes, restype
+        emit({"phase": "tile_sweep", "kernel": "paged_attention",
+              "variant": name, "ptxas": ptxas_report(log)})
+    rng = np.random.default_rng(seed + 1)
+    timer = Timer()
+    for label, *_ in K5_TIMING:
+        case, desc = k5_timing_case(rng, label)
+        if label not in K5_SWEEP + ("long_context",):
+            continue
+        chosen = pa.splits_for(case["q"], case["pool_k"],
+                               case["block_table"])
+        times = {}
+        shipped_lib = pa._lib
+        try:
+            for name, lib in libs.items():
+                pa._lib = lambda lib=lib: lib
+                sweep = name in ("shipped", "half_warps")
+                for S in (sorted({1, chosen, 2 * chosen}) if sweep
+                          else [chosen]):
+                    st = timer.stats(lambda: pa._launch(**case, splits=S))
+                    times[f"{name}_S{S}"] = [st["ms"], st["min"], st["max"]]
+        finally:
+            pa._lib = shipped_lib
+        emit({"phase": "tile_sweep", "kernel": "paged_attention", **desc,
+              "chosen_splits": chosen,
+              "times_ms_median_min_max": times,
+              "bound_ms": paged_bound(case)[0]})
+        if label == "long_context":
+            B, H, hd = case["q"].shape
+            Mp = case["block_table"].shape[1] * 32
+            tbl = case["block_table"].long()
+            kd, vd = (pool[tbl].reshape(B, Mp, H, hd).transpose(1, 2)
+                      for pool in (case["pool_k"], case["pool_v"]))
+            qd = case["q"][:, :, None, :]
+            flush = {}
+            for tname, t in (("write_flush", timer),
+                             ("read_flush", Timer(flush="read"))):
+                flush[tname] = {
+                    "k5": t.stats(lambda: pa.paged_attention(**case))["ms"],
+                    "sdpa_no_mask": t.stats(
+                        lambda: F.scaled_dot_product_attention(
+                            qd, kd, vd))["ms"]}
+            emit({"phase": "tile_sweep", "kernel": "paged_attention",
+                  "shape": label, "flush": flush,
+                  "note": "every position is live at offset 1023, so SDPA "
+                          "needs no mask here (yardstick only)"})
 
 
 def lstm_case(rng, B, T, H):
@@ -2173,7 +2515,8 @@ def main():
                     help="also print device time by kernel of a serve "
                          "run and of a train step of each model")
     ap.add_argument("--tile-sweep", action="store_true",
-                    help="also time K1, K2 and K3 built with other tile "
+                    help="also time K5 at other split counts and warps, "
+                         "and K1, K2 and K3 built with other tile "
                          "widths, warpgroups and ring depths")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -2198,18 +2541,28 @@ def main():
     lstm_launches = phase_lm(args.seed, args.profile)
     t5_err = phase_flash_options(args.seed)
     t5_launches = phase_t5(args.seed, args.profile)
-    t = phase_timing(args.seed)[0]     # the serving path's own shape
+    k5_rows = phase_timing(args.seed)
     flash_t = phase_flash_timing(args.seed)
     lstm_t = phase_lstm_timing(args.seed)
     t5_t = phase_t5_timing(args.seed)
     if args.tile_sweep:
+        phase_paged_sweep(args.seed)
         phase_tile_sweep(args.seed)
+    # K5: the numbers at the serving path's own shape, and every timing
+    # row beside them
+    t = k5_rows["slice"]
     kernels = [{
         "name": "paged_attention", "route": "cuda", "source": SOURCE,
-        "design": "SIMT f32", "replaces": REPLACES, "launches": launches,
+        "design": K5_DESIGN, "replaces": REPLACES, "launches": launches,
+        "launches_counted": "one per wrapper call: paged_split_kernel, "
+                            "whose last block per (slot, head group) "
+                            "merges the splits",
         "max_abs_err": main_err, "max_err": main_err,
-        "tol": TOL[torch.bfloat16],
-        **{k: t[k] for k in TIMED_KEYS}}]
+        "tol": TOL[torch.bfloat16], "shape": "slice", "splits": t["splits"],
+        **{k: t[k] for k in TIMED_KEYS},
+        "by_shape": {label: {k: r[k] for k in ("splits", *TIMED_KEYS,
+                                               "library_full_strip_ms")}
+                     for label, r in k5_rows.items()}}]
     # K1-K3: the numbers at the GPT-2 train shape, and at the T5 encoder's
     # beside them; launches over both training paths.  K4 runs on the T5
     # path alone.

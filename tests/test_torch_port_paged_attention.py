@@ -2,9 +2,10 @@
 runs for CPU tensors, and what the CUDA kernel is held against on the card
 by chip_smoke.py) against the JAX package's Pallas kernel in interpret mode
 and its gather oracle, over the parametrisation of
-tests/test_paged_attention.py.  Tolerance rtol = atol = 2e-5 in float32:
-the two sides differ only in summation order.  Also the wrapper's errors,
-and the kernel build's refusal where nvcc is missing."""
+tests/test_paged_attention.py, and at head dims only the plain version
+takes.  Tolerance rtol = atol = 2e-5 in float32: the two sides differ only
+in summation order.  Also the wrapper's errors, and the kernel build's
+refusal where nvcc is missing."""
 
 import math
 
@@ -22,6 +23,7 @@ from neuralnetworklibrary_tpu.ops.paged_attention import (
 )
 from neuralnetworklibrary_tpu_torch.kernels import build
 from neuralnetworklibrary_tpu_torch.ops.paged_attention import (
+    _launch,
     paged_attention,
     reference_paged_attention,
 )
@@ -178,13 +180,29 @@ def test_reference_is_the_cpu_path():
     (4, 2, 16, True, "int8 pools need"),
 ])
 def test_wrapper_errors(H, Hkv, hd, quant, match):
+    """Shapes the function does not take raise on every device.  The CUDA
+    kernel's own limits on hd (a multiple of 8, at most 256) raise at its
+    entry, before any launch, while the plain version on the CPU computes
+    any hd, as JAX's does (test_any_head_dim_on_cpu)."""
     q = torch.zeros(2, H, hd)
     dt = torch.int8 if quant else torch.float32
     pool = torch.zeros(5, 4, Hkv, hd, dtype=dt)
     table = torch.ones(2, 2, dtype=torch.int32)
     off = torch.zeros(2, dtype=torch.int32)
+    if match in ("multiple of 8", "<= 256"):
+        with pytest.raises(ValueError, match=match):
+            _launch(q, pool, pool, table, off, splits=1)
+        assert paged_attention(q, pool, pool, table, off).shape == q.shape
+        return
     with pytest.raises(ValueError, match=match):
         paged_attention(q, pool, pool, table, off)
+
+
+@pytest.mark.parametrize("hd", [12, 264])
+def test_any_head_dim_on_cpu(hd):
+    """The plain version takes head dims the kernel does not, against
+    JAX's kernel (interpret mode) and oracle."""
+    _check(_case(11, B=3, H=4, Hkv=2, hd=hd, N=16, bs=8, MB=3), window=6)
 
 
 def test_build_needs_nvcc(monkeypatch, tmp_path):
