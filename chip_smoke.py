@@ -5,9 +5,11 @@
 Phases, each printing one JSON line (the first line printed is the card's
 name and power limit from nvidia-smi):
 
-- build:  compile every CUDA source of the port with nvcc, in parallel;
-          ptxas's registers and spills per kernel (a spill in the
-          tensor-core flash kernels fails the run).
+- build:  compile every CUDA source of the port with nvcc, in parallel,
+          and beside them the LSTM kernels with only their grid barriers
+          (the per-step floor of the timing rows); ptxas's registers and
+          spills per kernel (a spill in any tensor-core kernel, flash or
+          LSTM, fails the run).
 - kernel: each kernel against its plain PyTorch version on the card.  The
           paged decode kernel over dtypes, head layouts, block sizes,
           windows, sinks, offset edges and shared table rows, and at the
@@ -43,10 +45,13 @@ name and power limit from nvidia-smi):
 - lstm:   K6 (LSTM forward scan) and K7 (backward scan) against their
           plain versions on the same bf16 inputs and residuals, B 1, 3, 64
           x T 1, 7, 75 x H 24, 400, 1150 and three shapes for the kernels'
-          other paths, nonzero (h0, c0); and the
-          autograd Function end to end (K6, K7 and the weight-gradient
-          product) on the card against the same Function on the CPU, xp in
-          float32 and in bf16.
+          other paths, nonzero (h0, c0); then where the plan matters, each
+          also against the split algorithm of its own plan: a partial last
+          cluster, B 65 and 127 (two batch chunks), B 1 at T 1, and every
+          cluster size at H 1150 and 400 (one that does not fit is listed);
+          K6 and K7 twice, bit for bit; and the autograd Function end to end
+          (K6, K7 and the weight-gradient product) on the card against the
+          same Function on the CPU, xp in float32 and in bf16.
 - lm:     the AWD-LSTM 400-1150-3 of bench.py's bench_lm (vocab 30,001, bs
           64, bptt 75) through the port's Learner, on a random-token corpus
           built as bench.py builds it: (a) one f32 forward/backward at B 4,
@@ -83,7 +88,9 @@ name and power limit from nvidia-smi):
           1023, B 1 at 1023, the serve run's offsets, Llama-3-8B's heads
           at 4,096 positions, and int8 pools; its yardstick is SDPA on
           the strip cut to the live positions with the kv heads shared,
-          and beside it SDPA on the whole masked strip.
+          and beside it SDPA on the whole masked strip.  K6/K7 at the LM's
+          widths with their plan and the same launch with only its grid
+          barriers (the per-step floor).
 
 --profile adds torch.profiler breakdowns of one more serve run and of one
 more train step of each model: device time by kernel (for the serve run
@@ -93,7 +100,9 @@ in {1, chosen, 2 x chosen} with its warps and half of them, with its
 staging or its arithmetic removed, and under a read flush, K1 and K2 built
 with other key-tile widths and ring depths, and K3 with other query-tile
 widths, consumer warpgroups and ring depths, timed at hd 64 and 128 (the
-measurement behind the shipped constants).
+measurement behind the shipped constants); and K6/K7 at every cluster size
+and two ring depths, and built without the multiply, without the staging
+and with only the grid barriers.
 
 Then a "kernels" line with every ported kernel, and last the line
 {"ok": true, "device": {...}}.  Any failure exits non-zero; no phase
@@ -196,6 +205,11 @@ GPT2 = dict(vocab_size=50257, d_model=768, n_heads=12, n_layers=12,
 LSTM_SOURCE = "neuralnetworklibrary_tpu_torch/csrc/lstm_scan.cu"
 LSTM_REPLACES = {"lstm_fwd": "neuralnetworklibrary_tpu/ops/pallas_lstm.py:49",
                  "lstm_bwd": "neuralnetworklibrary_tpu/ops/pallas_lstm.py:138"}
+LSTM_DESIGN = ("mma.sync bf16 on the tensor cores, cp.async ring of 64-column "
+               "tiles, the step product split over the k index inside a "
+               "thread-block cluster and summed over distributed shared "
+               "memory in a fixed order; a persistent grid of clusters, one "
+               "grid barrier per step")
 # K6/K7 against their plain versions on the same inputs, elementwise
 # |got - want| <= atol + rtol*|want|.  Both round to bf16 at the same
 # places and differ only in the order of the float32 sums, so a stored
@@ -470,20 +484,71 @@ def ptxas_report(log):
     return out
 
 
+def lstm_variant_start(label, **constants):
+    """Start building an edited copy of csrc/lstm_scan.cu with the given
+    constants (kAblate: 1 no multiply, 2 no staging, 3 only the grid
+    barriers; kTrace 1: phase stamps) into _build/lstm_<label>/; returns
+    (label, directory, process)."""
+    import shutil
+
+    from neuralnetworklibrary_tpu_torch.kernels import build
+
+    d = build.BUILD / f"lstm_{label}"
+    d.mkdir(parents=True, exist_ok=True)
+    shutil.copy(build.CSRC / "hopper.cuh", d / "hopper.cuh")
+    src = (build.CSRC / "lstm_scan.cu").read_text()
+    for name, value in constants.items():
+        line = f"constexpr int {name} = 0;"
+        if src.count(line) != 1:
+            fail(f"lstm variant: {line!r} is not in the source once")
+        src = src.replace(line, f"constexpr int {name} = {value};")
+    (d / "lstm_scan.cu").write_text(src)
+    return label, d, subprocess.Popen(
+        [build.nvcc(), *build.FLAGS, "-o", str(d / "lib.so"),
+         str(d / "lstm_scan.cu")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def lstm_variant_load(started):
+    """Wait for a variant of lstm_variant_start; its loaded library with the
+    wrapper's signatures, and its ptxas report."""
+    import ctypes
+
+    from neuralnetworklibrary_tpu_torch.ops import lstm_scan as ls
+
+    label, d, proc = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        fail(f"lstm variant {label} did not build:\n{log[-3000:]}")
+    lib = ctypes.CDLL(str(d / "lib.so"))
+    for n, (argtypes, restype) in ls.SIGNATURES.items():
+        fn = getattr(lib, n)
+        fn.argtypes, fn.restype = argtypes, restype
+    return lib, ptxas_report(log)
+
+
+# the library of K6/K7 with only their grid barriers (the per-step floor),
+# built beside the sources in phase_build
+LSTM_FLOOR = {}
+
+
 def phase_build():
     from neuralnetworklibrary_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
+    floor = lstm_variant_start("barriers", kAblate=3)
     res = build.build()
+    LSTM_FLOOR["lib"], floor_ptxas = lstm_variant_load(floor)
     ptxas = {n: ptxas_report(r["log"]) for n, r in res.items()}
-    spilled = {k: v for k, v in ptxas["flash_attention"].items()
+    spilled = {k: v for n in ("flash_attention", "lstm_scan")
+               for k, v in ptxas[n].items()
                if "_tc_kernel" in k and (v.get("spill_stores")
                                          or v.get("spill_loads"))}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_s": {n: r["seconds"] for n, r in res.items()},
-          "ptxas": ptxas})
+          "ptxas": ptxas, "lstm_barriers_only_ptxas": floor_ptxas})
     if spilled:
-        fail(f"the tensor-core flash kernels spill registers: {spilled}")
+        fail(f"the tensor-core kernels spill registers: {spilled}")
 
 
 def phase_kernel(seed):
@@ -1734,38 +1799,119 @@ def lstm_residuals(c0, cs, w):
     return w.t().contiguous(), cprev
 
 
-def phase_lstm_kernel(seed):
+def lstm_pair(args, cluster=None, stages=None):
+    """K6 on the inputs of lstm_case, then K7 on the plain version's
+    residuals: ((got, want) forward, (got, want) backward, residuals)."""
     from neuralnetworklibrary_tpu_torch.ops.lstm_scan import (
-        kernel_plan,
+        STAGES,
         lstm_bwd,
         lstm_fwd,
-        lstm_scan,
         reference_lstm_bwd,
         reference_lstm_fwd,
     )
 
+    xp, w, h0, c0, dys, dhT, dcT = args
+    kw = dict(cluster=cluster, stages=stages or STAGES)
+    got = lstm_fwd(xp, w, h0, c0, **kw)
+    want = reference_lstm_fwd(xp, w, h0, c0)
+    wT, cprev = lstm_residuals(c0, want[1], w)
+    res = (wT, want[2], want[1], cprev, dys, dhT, dcT)
+    return (got, want), (lstm_bwd(*res, **kw), reference_lstm_bwd(*res)), res
+
+
+LSTM_FWD_NAMES = ("ys", "cs", "gates", "hT", "cT")
+LSTM_BWD_NAMES = ("dgates", "dh0", "dc0")
+
+
+def lstm_edge_checks(rng):
+    """K6/K7 where the plan matters, each against its plain version and
+    against the split algorithm of its own plan (split_lstm_reference_*),
+    under LSTM_TOL; then K6 and K7 twice on the same inputs, bit for bit.
+    Returns the entries and the worst share of the tolerance."""
+    from neuralnetworklibrary_tpu_torch.ops.lstm_scan import (
+        CLUSTERS,
+        kernel_plan,
+        lstm_bwd,
+        lstm_fwd,
+        split_lstm_reference_bwd,
+        split_lstm_reference_fwd,
+    )
+
+    cases = [  # (label, B, T, H, cluster or None for the wrapper's)
+        ("partial_last_cluster", 64, 7, 1030, 4),
+        ("partial_last_cluster", 3, 7, 400, 8),
+        ("partial_last_cluster", 65, 5, 130, 4),
+        ("m_tiles", 65, 7, 1150, None), ("m_tiles", 127, 5, 1150, None),
+        ("m_tiles", 127, 5, 400, None),
+        ("b1_t1", 1, 1, 1150, None), ("b1_t1", 1, 1, 400, None),
+        ("b1_t1", 1, 1, 25, None)]
+    cases += [("cluster", 64, 7, H, C) for H in (1150, 400) for C in CLUSTERS]
+    out, worst = [], 0.0
+    for label, B, T, H, C in cases:
+        try:
+            plan = {k: kernel_plan(k, B, H, C) for k in ("fwd", "bwd")}
+        except ValueError as e:   # a cluster size the card cannot hold
+            if label != "cluster":
+                raise
+            out.append({"case": label, "B": B, "T": T, "H": H, "cluster": C,
+                        "does_not_fit": str(e)})
+            continue
+        args = lstm_case(rng, B, T, H)
+        (fg, fw), (bg, bw), res = lstm_pair(args, C)
+        fs = split_lstm_reference_fwd(*args[:4], plan["fwd"])
+        bs = split_lstm_reference_bwd(*res, plan["bwd"])
+        torch.cuda.synchronize()
+        entry = {"case": label, "B": B, "T": T, "H": H,
+                 "cluster": {k: v["cluster"] for k, v in plan.items()},
+                 "blocks": {k: v["blocks"] for k, v in plan.items()}}
+        for kind, g, refs, names in (("fwd", fg, (fw, fs), LSTM_FWD_NAMES),
+                                     ("bwd", bg, (bw, bs), LSTM_BWD_NAMES)):
+            for ref_name, ref in zip(("plain", "split"), refs):
+                errs, share = tol_share(g, ref, LSTM_TOL[kind], names)
+                worst = max(worst, share)
+                entry[f"{kind}_vs_{ref_name}_share_of_tol"] = share
+                if not share <= 1.0:
+                    fail(f"lstm edge {label} B={B} T={T} H={H} C={C} {kind} "
+                         f"vs {ref_name}: max|err| {errs} past "
+                         f"{LSTM_TOL[kind]}")
+        out.append(entry)
+    # two calls at the main shape and at a cluster-split one, bit for bit
+    bits = {}
+    for B, T, H in ((64, 75, 1150), (64, 75, 400)):
+        args = lstm_case(rng, B, T, H)
+        a = lstm_fwd(*args[:4])
+        b = lstm_fwd(*args[:4])
+        wT, cprev = lstm_residuals(args[3], a[1], args[1])
+        res = (wT, a[2], a[1], cprev, *args[4:])
+        c = lstm_bwd(*res)
+        d = lstm_bwd(*res)
+        torch.cuda.synchronize()
+        bits[f"B{B}_T{T}_H{H}"] = {
+            "fwd": all(torch.equal(x, y) for x, y in zip(a, b)),
+            "bwd": all(torch.equal(x, y) for x, y in zip(c, d))}
+        if not all(bits[f"B{B}_T{T}_H{H}"].values()):
+            fail(f"lstm kernels not bit-identical over two calls: {bits}")
+    return out, worst, bits
+
+
+def phase_lstm_kernel(seed):
+    from neuralnetworklibrary_tpu_torch.ops.lstm_scan import (
+        kernel_plan,
+        lstm_scan,
+    )
+
     rng = np.random.default_rng(seed + 6)
-    fwd_names = ("ys", "cs", "gates", "hT", "cT")
-    bwd_names = ("dgates", "dh0", "dc0")
     worst, worst_share, n_cases = {}, {"fwd": 0.0, "bwd": 0.0}, 0
     main_err = {"lstm_fwd": 0.0, "lstm_bwd": 0.0}
     shapes = [(B, T, H) for B in (1, 3, 64) for T in (1, 7, 75)
               for H in (24, 400, 1150)]
-    # the kernels' other paths: odd H (per-element staging, 4-byte loads in
-    # K7) and more cell items than the threads prefetch for (K7 at B 128,
-    # K6 at B 1100)
+    # odd H, and more batch rows than one chunk (K7 at B 128, K6 at B 1100)
     shapes += [(3, 7, 25), (128, 7, 1150), (1100, 3, 24)]
     for B, T, H in shapes:
-        xp, w, h0, c0, dys, dhT, dcT = lstm_case(rng, B, T, H)
-        got = lstm_fwd(xp, w, h0, c0)
-        want = reference_lstm_fwd(xp, w, h0, c0)
-        wT, cprev = lstm_residuals(c0, want[1], w)
-        res = (wT, want[2], want[1], cprev, dys, dhT, dcT)
-        bgot = lstm_bwd(*res)
-        bwant = reference_lstm_bwd(*res)
+        (got, want), (bgot, bwant), _ = lstm_pair(lstm_case(rng, B, T, H))
         torch.cuda.synchronize()
-        for kind, g, wv, names in (("fwd", got, want, fwd_names),
-                                   ("bwd", bgot, bwant, bwd_names)):
+        for kind, g, wv, names in (("fwd", got, want, LSTM_FWD_NAMES),
+                                   ("bwd", bgot, bwant, LSTM_BWD_NAMES)):
             errs, share = tol_share(g, wv, LSTM_TOL[kind], names)
             worst_share[kind] = max(worst_share[kind], share)
             for n, e in errs.items():
@@ -1777,6 +1923,7 @@ def phase_lstm_kernel(seed):
                 key = "lstm_" + kind
                 main_err[key] = max(main_err[key], max(errs.values()))
         n_cases += 1
+    edges, edge_worst, bits = lstm_edge_checks(rng)
 
     # the autograd Function end to end: on the card (K6, K7 and the dw
     # product) against the same Function on the CPU (its plain versions)
@@ -1814,6 +1961,8 @@ def phase_lstm_kernel(seed):
           "worst_share_of_tol": worst_share,
           "tol_atol_rtol": LSTM_TOL,
           "main_shape_max_abs_err": main_err,
+          "edge_cases": edges, "edge_worst_share_of_tol": edge_worst,
+          "bit_identical_calls": bits,
           "plan_1150": {k: kernel_plan(k, 64, 1150) for k in ("fwd", "bwd")},
           "plan_400": {k: kernel_plan(k, 64, 400) for k in ("fwd", "bwd")},
           "autograd_end_to_end": e2e, "grad_tol_over_max": LSTM_GRAD_TOL})
@@ -1993,8 +2142,39 @@ def lstm_bound(B, T, H, kind):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+class lstm_library:
+    """Within the block, the lstm_scan wrappers launch the kernels of
+    ``lib`` (a variant of lstm_variant_load) in place of the shipped
+    library."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __enter__(self):
+        from neuralnetworklibrary_tpu_torch.ops import lstm_scan as ls
+
+        self.saved = ls._lib
+        ls._lib = lambda: self.lib
+
+    def __exit__(self, *exc):
+        from neuralnetworklibrary_tpu_torch.ops import lstm_scan as ls
+
+        ls._lib = self.saved
+
+
+def lstm_timing_inputs(rng, B, T, H):
+    """(K6 arguments, K7 arguments) at one shape, K7's residuals from K6."""
+    from neuralnetworklibrary_tpu_torch.ops.lstm_scan import lstm_fwd
+
+    xp, w, h0, c0, dys, dhT, dcT = lstm_case(rng, B, T, H)
+    _, cs, gates, _, _ = lstm_fwd(xp, w, h0, c0)
+    wT, cprev = lstm_residuals(c0, cs, w)
+    return (xp, w, h0, c0), (wT, gates, cs, cprev, dys, dhT, dcT)
+
+
 def phase_lstm_timing(seed):
     from neuralnetworklibrary_tpu_torch.ops.lstm_scan import (
+        kernel_plan,
         lstm_bwd,
         lstm_fwd,
         reference_lstm_bwd,
@@ -2006,15 +2186,16 @@ def phase_lstm_timing(seed):
     rows = {}
     B, T = AWD_LSTM["B"], AWD_LSTM["bptt"]
     for H, I in ((1150, 1150), (400, 1150)):   # layers 1 and 2 of the LM
-        xp, w, h0, c0, dys, dhT, dcT = lstm_case(rng, B, T, H)
-        _, cs, gates, _, _ = lstm_fwd(xp, w, h0, c0)
-        wT, cprev = lstm_residuals(c0, cs, w)
-        res = (wT, gates, cs, cprev, dys, dhT, dcT)
-        st = {"lstm_fwd": timer.stats(lambda: lstm_fwd(xp, w, h0, c0)),
-              "lstm_bwd": timer.stats(lambda: lstm_bwd(*res))}
-        plain = {"lstm_fwd": timer.stats(lambda: reference_lstm_fwd(
-                     xp, w, h0, c0), reps=5),
-                 "lstm_bwd": timer.stats(lambda: reference_lstm_bwd(*res),
+        fargs, bargs = lstm_timing_inputs(rng, B, T, H)
+        st = {"lstm_fwd": timer.stats(lambda: lstm_fwd(*fargs)),
+              "lstm_bwd": timer.stats(lambda: lstm_bwd(*bargs))}
+        # the per-step floor: the same launch with only the grid barriers
+        with lstm_library(LSTM_FLOOR["lib"]):
+            floor = {"lstm_fwd": timer.stats(lambda: lstm_fwd(*fargs)),
+                     "lstm_bwd": timer.stats(lambda: lstm_bwd(*bargs))}
+        plain = {"lstm_fwd": timer.stats(lambda: reference_lstm_fwd(*fargs),
+                                         reps=5),
+                 "lstm_bwd": timer.stats(lambda: reference_lstm_bwd(*bargs),
                                          reps=5)}
         # layer-level yardstick the port never calls: cuDNN's LSTM in bf16
         # on the same layer, which also does the input projection
@@ -2022,6 +2203,7 @@ def phase_lstm_timing(seed):
             torch.bfloat16)
         x = torch.from_numpy(rng.normal(0, 1, (B, T, I)).astype(
             np.float32)).cuda().to(torch.bfloat16).requires_grad_()
+        h0, c0 = fargs[2], fargs[3]
         hc = (h0[None].to(torch.bfloat16), c0[None].to(torch.bfloat16))
         wrt = [x] + list(lstm.parameters())
         with torch.no_grad():
@@ -2034,10 +2216,16 @@ def phase_lstm_timing(seed):
             lstm(x, hc)[0], wrt, gy))
         library = {"lstm_fwd": lib_fwd, "lstm_bwd": lib_bwd}
         for name in st:
+            kind = name.split("_")[1]
             row = timed_row(st[name], plain[name], library[name],
                             lstm_bound(B, T, H, name))
             emit({"phase": "timing", "kernel": name, "B": B, "T": T, "H": H,
                   **row, "ms_per_step": row["ms"] / T,
+                  "plan": kernel_plan(kind, B, H),
+                  "barriers_only_ms": floor[name]["ms"],
+                  "barriers_only_ms_spread": [floor[name]["min"],
+                                              floor[name]["max"]],
+                  "floor_ms_per_step": floor[name]["ms"] / T,
                   "plain": ("reference_lstm_fwd" if name == "lstm_fwd"
                             else "reference_lstm_bwd") + " on the card",
                   "library": f"torch.nn.LSTM({I}, {H}) bf16 (cuDNN), "
@@ -2048,8 +2236,123 @@ def phase_lstm_timing(seed):
                   "library_fwd_bwd_ms": lib_fwd_bwd["ms"],
                   "share_of_bound": row["bound_ms"] / row["ms"]})
             if H == 1150:   # the main path's widest layers
-                rows[name] = row
+                rows[name] = {**row, "barriers_only_ms": floor[name]["ms"],
+                              "plan": kernel_plan(kind, B, H)}
     return rows
+
+
+LSTM_ABLATIONS = {"no_multiply": 1, "no_staging": 2, "barriers_only": 3}
+# enum TraceEdge of csrc/lstm_scan.cu, in order
+LSTM_TRACE_EDGES = ("step", "tile", "multiplied", "partials", "exchanged",
+                    "reduced", "cell", "arrived", "stored")
+
+
+def lstm_trace_phases(stamps):
+    """Median SM cycles of each phase of a step, from the trace build's
+    stamps of one call: a step runs from one "step" edge to the next; each
+    phase ends at the first stamp of its edge (the first tile apart from
+    the rest of the ring), and "barrier" is the stores' end to the next
+    step.  Steps 2 to T - 2 only."""
+    steps, cur = [], None
+    for v in stamps:
+        edge, t = LSTM_TRACE_EDGES[v & 15], v >> 4
+        if edge == "step":
+            if cur is not None:
+                cur["next"] = t
+            cur = {"step": t}
+            steps.append(cur)
+        elif cur is not None:
+            key = "first_tile" if edge == "tile" else edge
+            cur.setdefault(key, t)
+    order = ("step", "first_tile", "multiplied", "partials", "exchanged",
+             "reduced", "cell", "arrived", "stored", "next")
+    phases = {}
+    for st in steps[1:-1]:
+        seen = [k for k in order if k in st]
+        for a, b in zip(seen, seen[1:]):
+            name = "barrier" if b == "next" else b
+            phases.setdefault(name, []).append(st[b] - st[a])
+        phases.setdefault("step_total", []).append(st["next"] - st["step"])
+    return {k: statistics.median(v) for k, v in phases.items()}
+
+
+def phase_lstm_sweep(seed):
+    """K6 and K7 at B 64, T 75, H 1150 and 400 (the LM's layers) with
+    every cluster size and two ring depths, then the shipped plan built
+    without the multiply, without the staging and with only the grid
+    barriers: the measurement behind default_cluster and STAGES of
+    ops/lstm_scan.py.  A plan that does not fit is listed, not timed.  Then
+    the trace build at T 10: the median SM cycles of each phase of a step
+    (lstm_trace_phases) on block 0."""
+    import ctypes
+
+    from neuralnetworklibrary_tpu_torch.ops.lstm_scan import (
+        CLUSTERS,
+        STAGES,
+        _run,
+        kernel_plan,
+        lstm_bwd,
+        lstm_fwd,
+    )
+
+    started = [lstm_variant_start(label, kAblate=a)
+               for label, a in LSTM_ABLATIONS.items()]
+    started.append(lstm_variant_start("trace", kTrace=1))
+    libs = {s[0]: lstm_variant_load(s)[0] for s in started}
+    trace_lib = libs.pop("trace")
+    rng = np.random.default_rng(seed + 14)
+    timer = Timer()
+    B, T = AWD_LSTM["B"], AWD_LSTM["bptt"]
+    fns = {"lstm_fwd": lstm_fwd, "lstm_bwd": lstm_bwd}
+    for H in (1150, 400):
+        fargs, bargs = lstm_timing_inputs(rng, B, T, H)
+        args = {"lstm_fwd": fargs, "lstm_bwd": bargs}
+        times = {}
+        for name, fn in fns.items():
+            kind = name.split("_")[1]
+            for C in CLUSTERS:
+                for stages in (2, STAGES):
+                    key = f"C{C}_stages{stages}"
+                    try:
+                        plan = kernel_plan(kind, B, H, C, stages)
+                    except ValueError as e:
+                        times.setdefault(name, {})[key] = str(e)
+                        continue
+                    st = timer.stats(lambda: fn(*args[name], cluster=C,
+                                                stages=stages), reps=10)
+                    times.setdefault(name, {})[key] = {
+                        "ms": st["ms"], "spread": [st["min"], st["max"]],
+                        "blocks": plan["blocks"],
+                        "units_per_block": plan["units_per_block"],
+                        "smem_bytes": plan["smem_bytes"]}
+            for label, lib in libs.items():
+                with lstm_library(lib):
+                    st = timer.stats(lambda: fn(*args[name]), reps=10)
+                times[name][label] = {"ms": st["ms"],
+                                      "spread": [st["min"], st["max"]]}
+        # where a step's time goes: the trace build, T 10, SM cycles
+        trace = {}
+        targs = {"lstm_fwd": [a[:10] if i == 0 else a
+                              for i, a in enumerate(fargs)],
+                 "lstm_bwd": [a[:10] if i in (1, 2, 3, 4) else a
+                              for i, a in enumerate(bargs)]}
+        stamps = (ctypes.c_longlong * 4096)()
+        count = ctypes.c_int()
+        with lstm_library(trace_lib):
+            for name, fn in fns.items():
+                _run(trace_lib.nnl_lstm_trace, stamps, ctypes.byref(count))
+                fn(*targs[name])
+                torch.cuda.synchronize()
+                _run(trace_lib.nnl_lstm_trace, stamps, ctypes.byref(count))
+                trace[name] = lstm_trace_phases(stamps[:count.value])
+        clocks = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+             "--format=csv,noheader"], capture_output=True,
+            text=True).stdout.strip()
+        emit({"phase": "lstm_sweep", "B": B, "T": T, "H": H,
+              "shipped": {k: kernel_plan(k, B, H) for k in ("fwd", "bwd")},
+              "times_ms": times, "trace_cycles_T10": trace,
+              "sm_clock_now_max": clocks})
 
 
 def t5_params(seed, cfg):
@@ -2516,8 +2819,9 @@ def main():
                          "run and of a train step of each model")
     ap.add_argument("--tile-sweep", action="store_true",
                     help="also time K5 at other split counts and warps, "
-                         "and K1, K2 and K3 built with other tile "
-                         "widths, warpgroups and ring depths")
+                         "K1, K2 and K3 built with other tile widths, "
+                         "warpgroups and ring depths, and K6/K7 at every "
+                         "cluster size and in ablations")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2548,6 +2852,7 @@ def main():
     if args.tile_sweep:
         phase_paged_sweep(args.seed)
         phase_tile_sweep(args.seed)
+        phase_lstm_sweep(args.seed)
     # K5: the numbers at the serving path's own shape, and every timing
     # row beside them
     t = k5_rows["slice"]
@@ -2590,7 +2895,7 @@ def main():
         kind = name.split("_")[1]
         kernels.append({
             "name": name, "route": "cuda", "source": LSTM_SOURCE,
-            "design": "SIMT f32", "replaces": LSTM_REPLACES[name],
+            "design": LSTM_DESIGN, "replaces": LSTM_REPLACES[name],
             "launches": lstm_launches[name], "max_abs_err": lstm_err[name],
             "tol": "atol %g + rtol %g" % LSTM_TOL[kind], **row})
     emit({"kernels": kernels})

@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks for the port's tensor-core kernels:
 // mbarriers, TMA tile loads, wgmma shared-memory descriptors and the
-// wgmma instructions the flash kernels use, written as inline PTX.  Host
+// wgmma instructions the flash kernels use; cp.async, ldmatrix, mma.sync
+// and the thread-block cluster's barrier and distributed shared memory
+// that the LSTM kernels use; all written as inline PTX.  Host
 // side: a 4-D tensor map over a (B, T, H, hd) bf16 tensor, encoded with
 // cuTensorMapEncodeTiled found through cudaGetDriverEntryPoint, so a
 // library that includes this needs no -lcuda.
@@ -77,6 +79,20 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       "DONE:\n}\n" ::"r"(smem_addr(bar)),
       "r"(parity)
       : "memory");
+}
+
+// Whether the phase of parity `parity` has completed (one poll).
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
+                                              uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred P1;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, P1;\n}\n"
+      : "=r"(done)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
 }
 
 // ------------------------------------------------------------ TMA
@@ -277,6 +293,134 @@ __device__ __forceinline__ void regs_alloc() {
 // later accesses by the async proxy (TMA, wgmma).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ------------------------------------------------------------ cp.async
+
+// 16 bytes from global to shared (cache-global: past the L1, so data
+// written by another block in this launch is read from L2); src_bytes 0
+// writes 16 zero bytes and reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most n (0 to 6) of this thread's groups are pending.
+__device__ __forceinline__ void cp_async_wait(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
+  }
+}
+
+// ------------------------------------------------------------ mma.sync
+
+// Four 8 x 8 bf16 matrices from shared memory; lane l gives the address
+// of row l % 8 of matrix l / 8, and receives in r[i] row l / 4, columns
+// 2 (l % 4) and 2 (l % 4) + 1 of matrix i.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// Two such matrices, from the addresses of lanes 0-15.
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr)
+               : "memory");
+}
+
+// D(16 x 8) += A(16 x 16) * B(16 x 8) in f32 from bf16.  With g = lane / 4,
+// q = lane % 4: a = {A[g][2q..], A[g+8][2q..], A[g][2q+8..], A[g+8][2q+8..]},
+// b = {B[2q..][g], B[2q+8..][g]}, d = {D[g][2q], D[g][2q+1], D[g+8][2q],
+// D[g+8][2q+1]}.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// ------------------------------------------------------------ clusters
+
+// This block's rank in its thread-block cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster: writes to shared memory
+// before it are visible to reads of any block of the cluster after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+// The shared::cluster address of the shared address `addr` (bytes) in the
+// block of rank `rank` of this cluster (distributed shared memory).
+__device__ __forceinline__ uint32_t map_cluster(uint32_t addr,
+                                                uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+// `bytes` (a multiple of 16) from this block's shared memory at src to the
+// shared::cluster address dst (of any block of the cluster), completing
+// them on the mbarrier at the shared::cluster address bar.
+__device__ __forceinline__ void bulk_copy_cluster(uint32_t dst, const void* src,
+                                                  uint32_t bytes,
+                                                  uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "r"(smem_addr(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// ------------------------------------------------------------ grid
+
+// A load that later reads and writes of this thread wait for, with
+// acquire semantics at the scope of the whole card.
+__device__ __forceinline__ unsigned int ld_acquire_gpu(
+    const unsigned int* p) {
+  unsigned int v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// The card's nanosecond clock.
+__device__ __forceinline__ unsigned long long globaltimer_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
 }
 
 // ------------------------------------------------------------ host

@@ -1,8 +1,8 @@
 """CPU checks of the port's kernel interface that only the card would
 otherwise show: the ctypes argtypes of every C entry point of
-``csrc/flash_attention.cu`` and ``csrc/paged_attention.cu`` against its
-signature in the source (a wrong one passes a 64-bit pointer as a 32-bit
-int), the rebuild rule of
+``csrc/flash_attention.cu``, ``csrc/paged_attention.cu`` and
+``csrc/lstm_scan.cu`` against its signature in the source (a wrong one
+passes a 64-bit pointer as a 32-bit int), the rebuild rule of
 ``kernels/build.py`` when a header changes, and the bf16 kernels'
 16-byte alignment check.  No nvcc and no card needed.
 """
@@ -18,6 +18,7 @@ import torch
 
 from neuralnetworklibrary_tpu_torch.kernels import build
 from neuralnetworklibrary_tpu_torch.ops import flash_attention as fa
+from neuralnetworklibrary_tpu_torch.ops import lstm_scan as ls
 from neuralnetworklibrary_tpu_torch.ops import paged_attention as pa
 
 _SOURCE = build.CSRC / "flash_attention.cu"
@@ -77,6 +78,22 @@ def test_every_paged_entry_point_has_a_table_row():
 def test_paged_argtypes_match_the_c_signature(name):
     kinds, ret = _PAGED[name]
     argtypes, restype = pa.SIGNATURES[name]
+    assert [_KIND[t] for t in argtypes] == kinds
+    assert _KIND[restype] == ret
+
+
+_LSTM = _c_signatures(build.CSRC / "lstm_scan.cu")
+
+
+def test_every_lstm_entry_point_has_a_table_row():
+    assert _LSTM, "no extern \"C\" functions parsed"
+    assert sorted(_LSTM) == sorted(ls.SIGNATURES)
+
+
+@pytest.mark.parametrize("name", sorted(_LSTM))
+def test_lstm_argtypes_match_the_c_signature(name):
+    kinds, ret = _LSTM[name]
+    argtypes, restype = ls.SIGNATURES[name]
     assert [_KIND[t] for t in argtypes] == kinds
     assert _KIND[restype] == ret
 
