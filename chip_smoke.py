@@ -78,6 +78,30 @@ name and power limit from nvidia-smi):
           on one fixed batch, then evaluate
           over 2 batches; (c) seq2seq_generate, greedy, 16 tokens for 2
           sources.  K1-K4 launches are counted over (b) and (c).
+- vision: the vision Learner path, random weights from --seed, synthetic
+          uint8 images: (a) resnet50 and senet154 at B 2, 224 px, one
+          train-mode forward and backward on the card against the same
+          model on the CPU (float32 logits, and float64 logits and
+          gradients, within 1e-3 of their largest entry), and the device
+          augmentation's stages on one draw, card against CPU; (b) bench.py's senet154 frozen fine-tune
+          (ImageLearner, get_transforms("SideOn", 224), bf16, Adam2,
+          freeze(), wd 1e-4, lr 1e-3, 120 classes, B 64): 10 steps on one
+          batch, then evaluate('val') over 2 batches with accuracy; the
+          body's BatchNorm statistics must move; (c) resnet50 unfrozen
+          (bench_resnet50_mfu's learner, B 64, bf16, Adam2) through
+          Learner(input_pipeline=) with __graft_entry__.py's augmentation,
+          the device warp included, 10 steps, with the augmentation's ms
+          per batch; (d) bn_freeze('non_head') for one step at B 8: the
+          body's BatchNorm parameters and buffers bit for bit unchanged,
+          every head tensor moved.  Losses finite and falling; img/s of
+          the median step of 2-10, ms per step, peak memory.
+- vit:    ViT-B/16 (google/vit-base-patch16-224's widths, random
+          weights): (a) f32 B 2, flash path against einsum path (loss
+          1e-4, gradients 1e-3 x max); (b) bf16 B 64, 120 classes, Adam2,
+          lr 1e-4, through the Learner with a normalize_batch pipeline,
+          10 steps and evaluate over 2 batches.  K1-K3 run bidirectional
+          at T 197; their launches over (b) are exact (12 x 10 each, and
+          12 x 2 more K1 in the evaluation).
 - timing: each call's device time by CUDA events, with the L2 flushed
           and the card held by a spin kernel while the host enqueues the
           call (Timer); the median and the spread (min, max) of the reps.
@@ -90,12 +114,16 @@ name and power limit from nvidia-smi):
           the strip cut to the live positions with the kv heads shared,
           and beside it SDPA on the whole masked strip.  K6/K7 at the LM's
           widths with their plan and the same launch with only its grid
-          barriers (the per-step floor).
+          barriers (the per-step floor).  K1-K3 also at the ViT-B/16
+          shape (B 64, H 12, T 197, hd 64, bidirectional), with SDPA's
+          cuDNN and flash backends pinned as at the GPT-2 shape.  The
+          flash kernel phase also holds K1-K3 at that shape, bf16 and f32.
 
 --profile adds torch.profiler breakdowns of one more serve run and of one
-more train step of each model: device time by kernel (for the serve run
-also every K5 kernel by name) and, for the train steps, the
-host ops with the most host time of their own.  --tile-sweep adds K5 at S
+more train step of each model (senet154 and ViT-B/16 included): device
+time by kernel (for the serve run also every K5 kernel by name), the
+copy and NCHW/NHWC transpose kernels, and, for the train steps, the host
+ops with the most host time of their own.  --tile-sweep adds K5 at S
 in {1, chosen, 2 x chosen} with its warps and half of them, with its
 staging or its arithmetic removed, and under a read flush, K1 and K2 built
 with other key-tile widths and ring depths, and K3 with other query-tile
@@ -245,6 +273,30 @@ T5_TRAFFIC = dict(B=16, src=512, src_min=384, tgt=113, steps=10,
 # the T5 model at f32, flash path against the einsum path: the loss within
 # 1e-4 relative, each parameter's gradient within 1e-3 of its largest entry
 T5_LOSS_RTOL, T5_GRAD_TOL = 1e-4, 1e-3
+# the vision runs: bench.py's senet154 frozen fine-tune (build_learner
+# :93-111; Dogbreed's 120 classes at 224 px, B 64) and resnet50 unfrozen
+# (bench_resnet50_mfu :337-351), on synthetic uint8 images from --seed
+VISION = dict(B=64, px=224, classes=120, steps=10, eval_batches=2)
+# ViT-B/16 at HF google/vit-base-patch16-224's config.json widths
+VIT_B16 = dict(image_size=224, patch=16, d_model=768, n_heads=12,
+               n_layers=12, d_ff=3072, norm_eps=1e-12, exact_gelu=True)
+# its attention: (224/16)**2 + 1 tokens, bidirectional, no bias, no mask
+VIT_SHAPE = dict(B=64, T=197, H=12, hd=64)
+# resnet50 and senet154 at B 2, card against CPU (TF32 off): the float32
+# logits, and the float64 logits and gradients, within 1e-3 of their
+# largest entry.  float32 gradients are not compared: through the
+# train-mode BatchNorms of B 2 they lose ~2e-2 of their largest entry
+# against float64 on one device alone (resnet50 at 64 px on the CPU:
+# 0.85 of 50.7), so two devices' float32 gradients differ by that much
+# whatever the code; float64 holds the two devices' arithmetic equal.
+VISION_CPU_TOL = 1e-3
+# the augmentation stages, card against CPU on one draw.  The warp's
+# float32 source coordinates reach ~230 px, where one ulp is 2**-16; the
+# card contracts A @ p + b into fmas, the CPU does not, so x and y may
+# each round ~2 ulps apart, and a bilinear sample moves by that times the
+# step between neighbouring pixels (up to 1 on noise images): 4 * 2**-16
+# on the [0, 1] image, over the smallest imagenet std after normalizing
+AUG_TOL = 4 * 2 ** -16 / 0.224
 
 
 def emit(obj):
@@ -899,6 +951,17 @@ def phase_flash_kernel(seed):
     errs, share = check_flash(case, 0, 0.0, 0, torch.bfloat16)
     if not share <= 1.0:
         fail(f"flash kernels at the training shape: max|err| {errs}")
+    # the ViT-B/16 path's shape: B 64, H 12, T 197 (no multiple of the
+    # tiles), bidirectional, no bias, no key mask, no dropout
+    v = VIT_SHAPE
+    vit = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        vcase = flash_case(rng, v["B"], v["T"], v["H"], v["hd"], dtype)
+        verrs, vshare = check_flash(vcase, 0, 0.0, 0, dtype, causal=False)
+        key = str(dtype).replace("torch.", "")
+        vit[key] = {"max_abs_err": verrs, "share_of_tol": vshare}
+        if not vshare <= 1.0:
+            fail(f"flash kernels at the ViT shape, {key}: max|err| {verrs}")
     emit({"phase": "kernel", "kernel": "flash_attention (fwd, dq, dkv)",
           "cases": n_cases, "max_abs_err": worst,
           "tol_atol_rtol": {str(d).replace("torch.", ""): t
@@ -906,10 +969,12 @@ def phase_flash_kernel(seed):
           "worst_share_of_tol": worst_share,
           "train_shape_share_of_tol": share,
           "hash_bits_checked": n_bits, "hash_bits_differing": 0,
-          "train_shape_max_abs_err": errs})
-    return {"flash_fwd": max(errs["o"], errs["lse"]),
-            "flash_bwd_dq": errs["dq"],
-            "flash_bwd_dkv": max(errs["dk"], errs["dv"])}
+          "train_shape_max_abs_err": errs,
+          "vit_shape": dict(v, causal=False), "vit_shape_checks": vit})
+    bf = vit["bfloat16"]["max_abs_err"]
+    return {"flash_fwd": max(errs["o"], errs["lse"], bf["o"], bf["lse"]),
+            "flash_bwd_dq": max(errs["dq"], bf["dq"]),
+            "flash_bwd_dkv": max(errs["dk"], errs["dv"], bf["dk"], bf["dv"])}
 
 
 def phase_flash_edges(seed):
@@ -1271,9 +1336,19 @@ def profile_step(step, phase="train_profile"):
     rows.sort(reverse=True)
     host.sort(reverse=True)
     total_ms = sum(r[0] for r in rows) / 1e3
+    # copies and layout transposes (a conv net kept in channels_last shows
+    # no NCHW <-> NHWC transpose per conv layer)
+    copies = {k: (us / 1e3, n) for us, k, n in rows
+              if "copy" in k or "nchwToNhwc" in k or "nhwcToNchw" in k}
     emit({"phase": phase, "wall_ms_profiled": wall * 1e3,
           "device_ms": total_ms,
           "device_busy_share": total_ms / (wall * 1e3),
+          "copy_kernels": {"calls": sum(n for _, n in copies.values()),
+                           "ms": sum(ms for ms, _ in copies.values()),
+                           "layout_transposes": sum(
+                               n for k, (_, n) in copies.items()
+                               if "nchw" in k.lower() and "nhwc" in
+                               k.lower())},
           "top_kernels": [{"name": k[:90], "ms": us / 1e3, "calls": n,
                            "share": us / 1e3 / total_ms}
                           for us, k, n in rows[:14]],
@@ -1521,7 +1596,12 @@ def sdpa_fwd_bwd(timer, fn, args, do, backend):
     return fwd, bwd, check
 
 
-def phase_flash_timing(seed):
+def flash_timing(seed, B, T, H, hd, causal, shape):
+    """K1-K3 at one shape (bf16, no bias, no key mask, no dropout) by
+    device time, beside the plain version and, as a yardstick the port
+    never calls, SDPA with its cuDNN and its flash backend pinned in turn
+    (the faster of the two; a backend that does not take the shape is
+    listed with its error).  Returns {kernel: timed row}."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend
 
@@ -1532,34 +1612,38 @@ def phase_flash_timing(seed):
         reference_flash_attention,
     )
 
-    B, T, H, hd = 8, 1024, 12, 64
-    rng = np.random.default_rng(seed + 5)
+    rng = np.random.default_rng(seed)
     q, k, v, do = flash_case(rng, B, T, H, hd, torch.bfloat16)
     scale = 1.0 / hd ** 0.5
+    kw = dict(causal=causal)
     timer = Timer()
-    o, lse = flash_fwd(q, k, v, scale)
+    o, lse = flash_fwd(q, k, v, scale, **kw)
     delta = ((do.float() * o.float()).sum(-1).transpose(1, 2)
              .reshape(B * H, T).contiguous())
-    st = {"flash_fwd": timer.stats(lambda: flash_fwd(q, k, v, scale)),
+    st = {"flash_fwd": timer.stats(lambda: flash_fwd(q, k, v, scale, **kw)),
           "flash_bwd_dq": timer.stats(lambda: flash_bwd_dq(
-              q, k, v, do, lse, delta, scale)),
+              q, k, v, do, lse, delta, scale, **kw)),
           "flash_bwd_dkv": timer.stats(lambda: flash_bwd_dkv(
-              q, k, v, do, lse, delta, scale))}
+              q, k, v, do, lse, delta, scale, **kw))}
 
-    # the plain version (in bf16, as the port would run it) and, as a
-    # yardstick the port never calls, SDPA with its cuDNN and its flash
-    # backend pinned in turn: forward alone, and the backward alone (dq,
-    # dk, dv together); the faster of the two is the yardstick
+    # the plain version (in bf16, as the port would run it) and the SDPA
+    # yardstick: forward alone, and the backward alone (dq, dk, dv
+    # together)
     plain_fwd, plain_bwd, _ = sdpa_fwd_bwd(
-        timer, lambda a, b, c: reference_flash_attention(a, b, c, scale),
-        (q, k, v), do, None)
-    lib = {backend.name: sdpa_fwd_bwd(
-        timer, lambda a, b, c: F.scaled_dot_product_attention(
-            a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2),
-            is_causal=True).transpose(1, 2),
-        (q, k, v), do, backend)
-        for backend in (SDPBackend.CUDNN_ATTENTION,
-                        SDPBackend.FLASH_ATTENTION)}
+        timer, lambda a, b, c: reference_flash_attention(
+            a, b, c, scale, causal=causal), (q, k, v), do, None)
+    lib, lib_errors = {}, {}
+    for backend in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION):
+        try:
+            lib[backend.name] = sdpa_fwd_bwd(
+                timer, lambda a, b, c: F.scaled_dot_product_attention(
+                    a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2),
+                    is_causal=causal).transpose(1, 2),
+                (q, k, v), do, backend)
+        except RuntimeError as e:   # the backend does not take this shape
+            lib_errors[backend.name] = str(e)[:200]
+    if not lib:
+        fail(f"no SDPA backend takes the {shape} shape: {lib_errors}")
     yardstick = min(lib, key=lambda n: lib[n][0]["ms"] + lib[n][1]["ms"])
     lib_fwd, lib_bwd, lib_bwd_check = lib[yardstick]
     rows = {}
@@ -1567,22 +1651,35 @@ def phase_flash_timing(seed):
         fwd = name == "flash_fwd"
         rows[name] = timed_row(st[name], plain_fwd if fwd else plain_bwd,
                                lib_fwd if fwd else lib_bwd,
-                               flash_bound(B, T, H, hd, name))
-        emit({"phase": "timing", "kernel": name, "B": B, "T": T, "H": H,
-              "hd": hd, "dtype": "bfloat16", "causal": True,
-              "design": FLASH_DESIGN[name], **rows[name],
+                               flash_bound(B, T, H, hd, name, causal=causal))
+        emit({"phase": "timing", "kernel": name, "shape": shape, "B": B,
+              "T": T, "H": H, "hd": hd, "dtype": "bfloat16",
+              "causal": causal, "design": FLASH_DESIGN[name], **rows[name],
               "plain": "reference_flash_attention in bf16"
                        + ("" if fwd else ": its backward, dq dk dv together"),
-              "library": "F.scaled_dot_product_attention(is_causal=True), "
-                         f"backend {yardstick}, "
+              "library": f"F.scaled_dot_product_attention(is_causal="
+                         f"{causal}), backend {yardstick}, "
                          + ("forward" if fwd else
                             "backward, dq dk dv together")
                          + " (yardstick only)",
               "library_by_backend": {n: r[0 if fwd else 1]
                                      for n, r in lib.items()},
+              **({"library_errors": lib_errors} if lib_errors else {}),
               **({} if fwd else {"library_bwd_check": lib_bwd_check}),
               "share_of_bound": rows[name]["bound_ms"] / rows[name]["ms"]})
     return rows
+
+
+def phase_flash_timing(seed):
+    """K1-K3 at the GPT-2 train shape (B 8, T 1024, causal)."""
+    return flash_timing(seed + 5, 8, 1024, 12, 64, True, "gpt2_train")
+
+
+def phase_vit_timing(seed):
+    """K1-K3 at the ViT-B/16 shape (B 64, T 197, bidirectional)."""
+    v = VIT_SHAPE
+    return flash_timing(seed + 24, v["B"], v["T"], v["H"], v["hd"], False,
+                        "vit")
 
 
 def k5_timing_case(rng, label):
@@ -2649,6 +2746,408 @@ def phase_t5_timing(seed):
     return rows
 
 
+# --------------------------------------------------------------- vision
+
+
+def image_data(xs, ys, B, classes, transforms=None):
+    """A data object over uint8 NHWC images: the first B rows are the
+    train batch, the rest the val batches."""
+    import types
+
+    from neuralnetworklibrary_tpu_torch.data.loader import (
+        ArrayDataset,
+        DataLoader,
+    )
+
+    return types.SimpleNamespace(
+        target_type="single_label", bs=B, sz=xs.shape[1],
+        categories={i: str(i) for i in range(classes)},
+        transforms=transforms,
+        train_dl=DataLoader(ArrayDataset(xs[:B], ys[:B]), B, prefetch=0),
+        val_dl=DataLoader(ArrayDataset(xs[B:], ys[B:]), B, prefetch=0))
+
+
+def synthetic_images(rng, n, classes, px):
+    """uint8 (n, px, px, 3) noise images and int32 labels from the seed's
+    rng, as __graft_entry__.py's _SyntheticImageData makes them, with the
+    label made recoverable from the image as it does there: the top eighth
+    of each image in its class's colour, which flips and lighting keep.
+    (From random weights a frozen senet154 on pure noise gives features
+    the labels cannot be fitted to: its loss stays flat.)"""
+    xs = rng.integers(0, 256, (n, px, px, 3), dtype=np.uint8)
+    ys = rng.integers(0, classes, n).astype(np.int32)
+    xs[:, :px // 8] = np.stack([ys * 2 % 256, ys * 37 % 256,
+                                ys * 101 % 256], -1)[:, None, None]
+    return xs, ys
+
+
+def normalize_pipeline(generator, xs, train):
+    from neuralnetworklibrary_tpu_torch.ops.augment import (
+        imagenet_stats,
+        normalize_batch,
+    )
+
+    return (normalize_batch(xs[0], imagenet_stats),) + tuple(xs[1:])
+
+
+def graft_pipeline(generator, xs, train):
+    """__graft_entry__.py's pipeline: the device augmentation with the warp
+    (SideOn, max_deg 10, max_zoom 1.05) in training, else normalize."""
+    from neuralnetworklibrary_tpu_torch.ops.augment import (
+        augment_batch,
+        imagenet_stats,
+    )
+
+    if not train:
+        return normalize_pipeline(generator, xs, train)
+    return (augment_batch(generator, xs[0], tfm_type="SideOn", max_deg=10,
+                          max_zoom=1.05, stats=imagenet_stats),) + tuple(
+        xs[1:])
+
+
+def grads_err(models, x, y):
+    """One train-mode forward and backward of the same model on each
+    device (x, y on the CPU): max |logits diff|, max |logits|, max |grad
+    diff| and max |grad| over every parameter."""
+    import torch.nn.functional as F
+
+    out = []
+    for m in models:
+        dev = next(m.parameters()).device
+        m.zero_grad(set_to_none=True)
+        logits = m(x.to(dev), train=True)
+        F.cross_entropy(logits, y.to(dev)).backward()
+        out.append((logits.detach().cpu(),
+                    {n: p.grad.cpu() for n, p in m.named_parameters()}))
+    (lc, gc), (lg, gg) = out
+    return (float((lg - lc).abs().max()), float(lc.abs().max()),
+            max(float((gg[n] - g).abs().max()) for n, g in gc.items()),
+            max(float(g.abs().max()) for g in gc.values()))
+
+
+def vision_card_vs_cpu(seed):
+    """(a) resnet50 and senet154 with their own classifiers (mean pool
+    and a linear layer: at B 2 the concat-pool head's BatchNorms would
+    normalize over two samples), 120 classes, B 2, 224 px, train mode, on
+    the card against the same model on the CPU, in float32 and in float64
+    (VISION_CPU_TOL); the device augmentation's
+    stages, given one draw, on the card against the CPU."""
+    import copy
+
+    from neuralnetworklibrary_tpu_torch.nn.resnet import resnet50
+    from neuralnetworklibrary_tpu_torch.nn.senet import SENet
+    from neuralnetworklibrary_tpu_torch.ops.augment import (
+        apply_augment,
+        draw_augment_params,
+        imagenet_stats,
+        normalize_batch,
+    )
+
+    V = VISION
+    rng = np.random.default_rng(seed + 20)
+    xs, ys = synthetic_images(rng, 8, V["classes"], V["px"])
+    x = normalize_batch(torch.from_numpy(xs[:2]), imagenet_stats).permute(
+        0, 3, 1, 2)
+    y = torch.from_numpy(ys[:2]).long()
+    nets = {"resnet50": lambda: resnet50(V["classes"], device="cpu"),
+            # senet154's body and classifier, without its dropout
+            "senet154": lambda: SENet("senet", (3, 8, 36, 3), 64, 16,
+                                      dropout_p=None,
+                                      num_classes=V["classes"],
+                                      device="cpu")}
+    res = {}
+    keys = ("logits_max_abs_err", "logits_max_abs", "grad_max_abs_err",
+            "grad_max_abs")
+    for arch, make in nets.items():
+        torch.manual_seed(seed)
+        cpu = make()
+        card = copy.deepcopy(cpu).cuda()
+        t0 = time.perf_counter()
+        f32 = dict(zip(keys, grads_err((cpu, card), x, y)))
+        f64 = dict(zip(keys, grads_err((cpu.double(), card.double()),
+                                       x.double(), y)))
+        res[arch] = {"float32": f32, "float64": f64,
+                     "seconds": time.perf_counter() - t0}
+        if not (f32["logits_max_abs_err"]
+                <= VISION_CPU_TOL * f32["logits_max_abs"]
+                and f64["logits_max_abs_err"]
+                <= VISION_CPU_TOL * f64["logits_max_abs"]
+                and f64["grad_max_abs_err"]
+                <= VISION_CPU_TOL * f64["grad_max_abs"]):
+            fail(f"{arch} card vs CPU: {res[arch]}")
+        del cpu, card
+    imgs = torch.from_numpy(xs).cuda()
+    g = torch.Generator("cuda").manual_seed(seed)
+    aug = {}
+    for tfm in ("SideOn", "TopDown"):
+        p = draw_augment_params(g, imgs, tfm_type=tfm, max_deg=10,
+                                max_zoom=1.05, max_noise=0.1)
+        got = apply_augment(imgs, p, imagenet_stats).cpu()
+        want = apply_augment(imgs.cpu(), {k: v.cpu() for k, v in p.items()},
+                             imagenet_stats)
+        aug[tfm] = float((got - want).abs().max())
+        if not aug[tfm] <= AUG_TOL:
+            fail(f"augmentation {tfm} card vs CPU: max|err| {aug[tfm]}")
+    emit({"phase": "vision", "part": "card vs CPU", "B": 2,
+          "px": V["px"], "head": "mean pool + linear, 120 classes",
+          "models": res,
+          "tol": f"float32 logits, float64 logits and grads: "
+                 f"{VISION_CPU_TOL} x max (TF32 off); float32 grads "
+                 f"reported, not held (see VISION_CPU_TOL)",
+          "augment_stages": "warp (max_deg 10, zoom 1.05) + flip / "
+                            "dihedral + lighting + noise 0.1 + normalize, "
+                            "B 8, one draw",
+          "augment_max_abs_err": aug, "augment_tol": AUG_TOL})
+
+
+def timed_steps(learner, batch, lr, steps):
+    """``steps`` train1minibatch calls, each synchronised: (losses, the
+    seconds of each)."""
+    losses, secs = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(learner.train1minibatch(batch, lr))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return [float(v) for v in losses], secs
+
+
+def step_report(losses, secs, B, peak):
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"train losses not finite and falling: {losses}")
+    steady = statistics.median(secs[1:])
+    return {"losses": losses, "first_step_ms": secs[0] * 1e3,
+            "ms_per_step_median_2_to_10": steady * 1e3,
+            "img_per_s": B / steady, "peak_memory_GB": peak / 1e9}
+
+
+def vision_senet154(seed, profile=False):
+    """(b) bench.py's build_learner("senet154", frozen=True), on synthetic
+    images: ImageLearner, get_transforms("SideOn", 224), bf16, Adam2,
+    freeze(), wd 1e-4, lr 1e-3; 10 steps on one batch, evaluate('val')."""
+    import tempfile
+
+    from neuralnetworklibrary_tpu_torch.applications.vision import (
+        ImageClassificationNet,
+        ImageLearner,
+        get_transforms,
+    )
+
+    V = VISION
+    B = V["B"]
+    rng = np.random.default_rng(seed + 21)
+    xs, ys = synthetic_images(rng, B * (1 + V["eval_batches"]),
+                              V["classes"], V["px"])
+    data = image_data(xs, ys, B, V["classes"],
+                      get_transforms("SideOn", V["px"]))
+    torch.manual_seed(seed)
+    model = ImageClassificationNet.create(data, "senet154")
+    batch = data.train_dl.peek()
+    with tempfile.TemporaryDirectory() as tmp:
+        learner = ImageLearner(tmp, data, model, "Adam2", seed=seed)
+        learner.freeze()
+        learner.init_optimizer(wd=1e-4)
+        bn = model.body.layer4_2.b3.bn
+        stats0 = (bn.running_mean.clone(), bn.running_var.clone())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, secs = timed_steps(learner, batch, 1e-3, V["steps"])
+        peak = torch.cuda.max_memory_allocated()
+        moved = not (torch.equal(bn.running_mean, stats0[0])
+                     or torch.equal(bn.running_var, stats0[1]))
+        t0 = time.perf_counter()
+        val_loss, val_acc = learner.evaluate("val")
+        eval_s = time.perf_counter() - t0
+        if profile:
+            profile_step(lambda: learner.train1minibatch(batch, 1e-3),
+                         "senet154_profile")
+    if not moved:
+        fail("senet154 freeze(): the body's BatchNorm statistics did not "
+             "move in training")
+    if not (np.isfinite(val_loss) and 0.0 <= val_acc <= 1.0):
+        fail(f"senet154 evaluate gave {val_loss}, {val_acc}")
+    n_eval = V["eval_batches"] * B
+    emit({"phase": "vision", "part": "senet154 frozen fine-tune",
+          "config": "bench.py build_learner('senet154', frozen=True): "
+                    "ImageLearner, get_transforms('SideOn', 224), Adam2, "
+                    "freeze(), wd 1e-4", "dtype": "bfloat16 (autocast)",
+          "B": B, "px": V["px"], "classes": V["classes"], "lr": 1e-3,
+          "steps": V["steps"], **step_report(losses, secs, B, peak),
+          "body_bn_stats_moved": moved, "val_loss": val_loss,
+          "val_accuracy": val_acc, "eval_images": n_eval,
+          "eval_s": eval_s, "eval_img_per_s": n_eval / eval_s})
+
+
+def vision_resnet50(seed):
+    """(c) bench_resnet50_mfu's learner (resnet50 unfrozen, B 64, bf16,
+    Adam2) through Learner(input_pipeline=) with the graft entry's device
+    augmentation; (d) bn_freeze('non_head') for one step at B 8."""
+    import tempfile
+
+    from neuralnetworklibrary_tpu_torch.applications.vision import (
+        ImageClassificationNet,
+    )
+    from neuralnetworklibrary_tpu_torch.learner import Learner
+
+    V = VISION
+    B = V["B"]
+    rng = np.random.default_rng(seed + 22)
+    xs, ys = synthetic_images(rng, B * (1 + V["eval_batches"]),
+                              V["classes"], V["px"])
+    data = image_data(xs, ys, B, V["classes"])
+    torch.manual_seed(seed)
+    model = ImageClassificationNet.create(data, "resnet50")
+    batch = data.train_dl.peek()
+    with tempfile.TemporaryDirectory() as tmp:
+        learner = Learner(tmp, data, model, "Adam2", seed=seed,
+                          compute_dtype="bfloat16",
+                          input_pipeline=graft_pipeline)
+        learner.init_optimizer(wd=1e-4)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, secs = timed_steps(learner, batch, 1e-3, V["steps"])
+        peak = torch.cuda.max_memory_allocated()
+        val_loss, val_acc = learner.evaluate("val")
+        # the augmentation alone on the device batch, by CUDA events
+        xs_dev = learner._to_device(batch)[0]
+        aug = Timer().stats(lambda: graft_pipeline(
+            learner.pipeline_generator, xs_dev, True), reps=10)
+    if not np.isfinite(val_loss):
+        fail(f"resnet50 evaluate gave {val_loss}")
+    emit({"phase": "vision", "part": "resnet50 unfrozen",
+          "config": "bench.py bench_resnet50_mfu's learner through "
+                    "Learner(input_pipeline=) with __graft_entry__.py's "
+                    "augment_batch(SideOn, max_deg 10, max_zoom 1.05)",
+          "dtype": "bfloat16 (autocast)", "B": B, "px": V["px"],
+          "classes": V["classes"], "lr": 1e-3, "wd": 1e-4,
+          "steps": V["steps"], **step_report(losses, secs, B, peak),
+          "val_loss": val_loss, "val_accuracy": val_acc,
+          "augment_ms_per_batch": aug["ms"],
+          "augment_ms_spread": [aug["min"], aug["max"]]})
+
+    # (d) bn_freeze('non_head'): the body's BatchNorm parameters and
+    # buffers stay bit for bit, the head moves
+    b8 = image_data(xs[:16], ys[:16], 8, V["classes"])
+    with tempfile.TemporaryDirectory() as tmp:
+        learner = Learner(tmp, b8, model, "Adam2", seed=seed,
+                          compute_dtype="bfloat16",
+                          input_pipeline=graft_pipeline)
+        learner.bn_freeze("non_head")
+        bn_state = {n: t.clone() for n, t in
+                    list(model.body.named_parameters())
+                    + list(model.body.named_buffers())
+                    if ".bn." in f".{n}"}
+        head = {n: t.clone() for n, t in model.head.named_parameters()}
+        loss = float(learner.train1minibatch(b8.train_dl.peek(), 1e-3))
+        torch.cuda.synchronize()
+    body = dict(list(model.body.named_parameters())
+                + list(model.body.named_buffers()))
+    changed = [n for n, t in bn_state.items() if not torch.equal(body[n], t)]
+    head_moved = sum(not torch.equal(p, head[n])
+                     for n, p in model.head.named_parameters())
+    if changed or head_moved != len(head) or not np.isfinite(loss):
+        fail(f"bn_freeze('non_head'): body bn tensors changed {changed[:5]}, "
+             f"head tensors moved {head_moved} of {len(head)}, loss {loss}")
+    emit({"phase": "vision", "part": "bn_freeze('non_head'), resnet50",
+          "B": 8, "loss": loss, "body_bn_tensors_unchanged": len(bn_state),
+          "head_tensors_moved": head_moved})
+
+
+def phase_vision(seed, profile=False):
+    vision_card_vs_cpu(seed)
+    vision_senet154(seed, profile)
+    vision_resnet50(seed)
+
+
+def phase_vit(seed, profile=False):
+    """ViT-B/16 (google/vit-base-patch16-224's widths, random weights):
+    (a) f32 B 2, flash path against the einsum path; (b) bf16 B 64
+    through the Learner with a normalize_batch pipeline, 10 steps, then
+    evaluate over 2 batches.  K1-K3 launches are counted over (b)."""
+    import tempfile
+
+    import torch.nn.functional as F
+
+    from neuralnetworklibrary_tpu_torch.learner import Learner
+    from neuralnetworklibrary_tpu_torch.nn.vit import ViT
+    from neuralnetworklibrary_tpu_torch.ops import flash_attention as fa
+    from neuralnetworklibrary_tpu_torch.ops.augment import (
+        imagenet_stats,
+        normalize_batch,
+    )
+
+    V = VISION
+    B, L = V["B"], VIT_B16["n_layers"]
+    rng = np.random.default_rng(seed + 23)
+    xs, ys = synthetic_images(rng, B * (1 + V["eval_batches"]),
+                              V["classes"], V["px"])
+    torch.manual_seed(seed)
+    model = ViT(num_classes=V["classes"], **VIT_B16, flash_attention=True)
+
+    # (a) f32, B 2: loss and every gradient, flash path against einsum path
+    x = normalize_batch(torch.from_numpy(xs[:2]).cuda(), imagenet_stats)
+    y = torch.from_numpy(ys[:2]).long().cuda()
+    res = []
+    for flash in (True, False):
+        model.flash_attention = flash
+        model.zero_grad(set_to_none=True)
+        loss = F.cross_entropy(model(x, train=True), y)
+        loss.backward()
+        res.append((float(loss.detach()),
+                    {n: p.grad.clone() for n, p in model.named_parameters()}))
+    model.flash_attention = True
+    model.zero_grad(set_to_none=True)
+    loss_err = abs(res[0][0] - res[1][0])
+    g_max = max(float(g.abs().max()) for g in res[1][1].values())
+    g_err = max(float((res[0][1][n] - g).abs().max())
+                for n, g in res[1][1].items())
+    del res
+    if not (np.isfinite(loss_err) and loss_err <= 1e-4):
+        fail(f"ViT f32 flash vs einsum loss: |err| {loss_err} > 1e-4")
+    if not g_err <= 1e-3 * g_max:
+        fail(f"ViT f32 flash vs einsum grads: max|err| {g_err} > 1e-3 x "
+             f"max|grad| {g_max}")
+
+    # (b) bf16, B 64, through the Learner
+    data = image_data(xs, ys, B, V["classes"])
+    batch = data.train_dl.peek()
+    counted = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    with tempfile.TemporaryDirectory() as tmp:
+        learner = Learner(tmp, data, model, "Adam2", seed=seed,
+                          compute_dtype="bfloat16",
+                          input_pipeline=normalize_pipeline)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counted:
+            fn.launches = 0
+        losses, secs = timed_steps(learner, batch, 1e-4, V["steps"])
+        peak = torch.cuda.max_memory_allocated()
+        val_loss, val_acc = learner.evaluate("val")
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in counted}
+        if profile:
+            profile_step(lambda: learner.train1minibatch(batch, 1e-4),
+                         "vit_profile")
+    want = {"flash_fwd": L * (V["steps"] + V["eval_batches"]),
+            "flash_bwd_dq": L * V["steps"], "flash_bwd_dkv": L * V["steps"]}
+    if launches != want:
+        fail(f"ViT flash kernel launches {launches} != {want}")
+    if not np.isfinite(val_loss):
+        fail(f"ViT evaluate gave {val_loss}")
+    emit({"phase": "vit", "model": "ViT-B/16 (google/vit-base-patch16-224 "
+          "widths), random weights", **VIT_B16,
+          "f32_flash_vs_einsum_loss_abs_err": loss_err,
+          "f32_flash_vs_einsum_grad_max_abs_err": g_err,
+          "f32_grad_max_abs": g_max,
+          "f32_tol": "loss 1e-4, grads 1e-3 x max|grad|",
+          "dtype": "bfloat16 (autocast)", "B": B, "T": VIT_SHAPE["T"],
+          "classes": V["classes"], "optimizer": "Adam2", "lr": 1e-4,
+          "steps": V["steps"], **step_report(losses, secs, B, peak),
+          "val_loss": val_loss, "val_accuracy": val_acc,
+          "eval_batches": V["eval_batches"], "kernel_launches": launches})
+    return launches
+
+
 def tc_smem_bytes(hd, tile, stages, n_stationary):
     """Shared memory of a tensor-core flash kernel (TcSmem in the source)."""
     halves = hd // 64
@@ -2816,7 +3315,8 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also print device time by kernel of a serve "
-                         "run and of a train step of each model")
+                         "run and of a train step of each model (senet154 "
+                         "and ViT-B/16 among them)")
     ap.add_argument("--tile-sweep", action="store_true",
                     help="also time K5 at other split counts and warps, "
                          "K1, K2 and K3 built with other tile widths, "
@@ -2845,10 +3345,13 @@ def main():
     lstm_launches = phase_lm(args.seed, args.profile)
     t5_err = phase_flash_options(args.seed)
     t5_launches = phase_t5(args.seed, args.profile)
+    phase_vision(args.seed, args.profile)
+    vit_launches = phase_vit(args.seed, args.profile)
     k5_rows = phase_timing(args.seed)
     flash_t = phase_flash_timing(args.seed)
     lstm_t = phase_lstm_timing(args.seed)
     t5_t = phase_t5_timing(args.seed)
+    vit_t = phase_vit_timing(args.seed)
     if args.tile_sweep:
         phase_paged_sweep(args.seed)
         phase_tile_sweep(args.seed)
@@ -2869,11 +3372,12 @@ def main():
                                                "library_full_strip_ms")}
                      for label, r in k5_rows.items()}}]
     # K1-K3: the numbers at the GPT-2 train shape, and at the T5 encoder's
-    # beside them; launches over both training paths.  K4 runs on the T5
-    # path alone.
+    # and the ViT's beside them; launches over the three training paths.
+    # K4 runs on the T5 path alone.
     for name in FLASH_KERNELS:
         by_path = {"train": flash_launches.get(name, 0),
-                   "t5": t5_launches[name]}
+                   "t5": t5_launches[name],
+                   "vit": vit_launches.get(name, 0)}
         dbias = name == "flash_bwd_dbias"
         row = t5_t[name] if dbias else flash_t[name]
         tol = (DBIAS_TOL if dbias else FLASH_TOL)[torch.bfloat16]
@@ -2890,7 +3394,8 @@ def main():
             "tol": ("atol %g x max|ref| + rtol %g + bf16 delta slack"
                     if dbias else "atol %g + rtol %g") % tol,
             "shape": "t5_encoder" if dbias else "gpt2_train", **row,
-            **({} if dbias else {"t5_encoder": t5_t[name]})})
+            **({} if dbias else {"t5_encoder": t5_t[name],
+                                 "vit": vit_t[name]})})
     for name, row in lstm_t.items():
         kind = name.split("_")[1]
         kernels.append({

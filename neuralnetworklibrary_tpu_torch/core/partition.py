@@ -4,13 +4,15 @@ module's parameters.
 Counterpart of ``neuralnetworklibrary_tpu/core/partition.py``.  Each
 parameter (path = its dotted name split on ".") gets a layer-group index
 by the longest matching prefix, an ``is_bn`` flag and an ``in_head`` flag;
-trainability is a function of ``frozen`` over the head flags.
+trainability is a function of ``frozen`` and ``bn_frozen`` over the
+head and bn flags.
 
 ``is_bn`` marks the parameters of BatchNorm modules, the ones that keep
 running statistics: the JAX package detects them by their ``batch_stats``
 collection (``detect_bn_paths``), which LayerNorm and RMSNorm do not have.
 A transformer therefore has no bn parameters, and decoupled weight decay
-reaches every trainable leaf, norm scales and biases included.
+reaches every trainable leaf, norm scales and biases included; the image
+models' ``nn.layers.BatchNorm`` is a ``_BatchNorm``.
 """
 
 from __future__ import annotations
@@ -45,11 +47,26 @@ class Partition:
     in_head: tuple[bool, ...]        # under the model's head prefixes?
     n_groups: int
 
-    def trainable_mask(self, frozen: bool = False) -> tuple[bool, ...]:
-        """Trainability per parameter: everything, or with ``frozen`` only
-        the head (Learner.freeze, :237-241).  ``bn_freeze`` is not ported
-        yet."""
-        return tuple(head or not frozen for head in self.in_head)
+    def trainable_mask(self, frozen: bool = False,
+                       bn_frozen: str | None = None) -> tuple[bool, ...]:
+        """Trainability per parameter under the reference's freezing rules.
+
+        ``frozen=True`` -> only head parameters train (Learner.freeze,
+        :237-241).  ``bn_frozen='all'`` -> no bn parameter trains
+        (Learner.bn_freeze, :248-264); ``'non_head'`` -> bn parameters
+        train only in the head.
+        """
+        if bn_frozen not in (None, "all", "non_head"):
+            raise ValueError(f"bn_frozen must be None, 'all', or "
+                             f"'non_head', got {bn_frozen!r}")
+        out = []
+        for bn, head in zip(self.is_bn, self.in_head):
+            t = not (frozen and not head)
+            if bn and (bn_frozen == "all"
+                       or (bn_frozen == "non_head" and not head)):
+                t = False
+            out.append(t)
+        return tuple(out)
 
 
 def detect_bn_paths(model: torch.nn.Module) -> set[Path]:

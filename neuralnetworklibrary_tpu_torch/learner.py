@@ -18,7 +18,16 @@ General/Learner.py).  What carries over unchanged:
 - a model's carried state (the AWD-LSTM encoder's (h, c), JAX's ``carry``
   collection) goes on from batch to batch in training and in evaluation
   alike, and nothing resets it between epochs.  Here it lives in the
-  model's buffers, so ``save``/``load`` keep it with the weights.
+  model's buffers, so ``save``/``load`` keep it with the weights;
+- an ``input_pipeline(generator, xs, train)`` runs on the device tensors
+  before the forward of every train, eval and predict batch (JAX's
+  ``input_pipeline(key, xs, train)``), with a ``torch.Generator`` on the
+  Learner's device seeded from ``seed`` in place of the key;
+- ``bn_freeze`` / ``bn_unfreeze`` and ``set_trainable``; a model whose
+  forward takes ``bn_frozen`` is called with it, so frozen BatchNorms stay
+  on their running statistics in training and leave them unchanged;
+- ``evaluate('val')`` gives the accuracy of 'single_label' and
+  'multi_label' targets, and ``predict`` runs over a whole loader.
 
 What differs: PyTorch runs eagerly, so one train step is forward,
 ``backward`` and :meth:`Optimizer.apply` in place, with no jit.  Frozen
@@ -27,11 +36,12 @@ parameters get ``requires_grad=False``.  Mixed precision is
 and the residual stream stay float32 (the JAX Learner casts the whole
 forward to bf16).  Batches reach the device by a pinned-memory,
 non-blocking copy, one batch ahead of the step, in place of the JAX
-package's mesh sharding and device prefetch.
+package's mesh sharding and device prefetch.  uint8 arrays (images)
+cross as uint8; other integer arrays become int64.
 
 Not ported yet, each raising ``NotImplementedError``: mesh / ZeRO / FSDP,
-``grad_accum``, ``mixup``, ``distill``, ``input_pipeline``, fused epochs,
-``bn_freeze``, SWA, end metrics and ``find_lr`` plotting (ROADMAP Queue 1).
+``grad_accum``, ``mixup``, ``distill``, fused epochs, SWA, end metrics and
+``find_lr`` plotting (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -91,9 +101,13 @@ class Learner:
     loss_func: ``loss(y_pred, y, mask=None)`` or 'default' (by target type).
     seed: seeds the CPU ``torch.Generator`` handed to the model, from which
         it draws the flash kernels' dropout seeds and the seeds of the
-        device generators that draw the AWD-LSTM's dropout masks.
+        device generators that draw the AWD-LSTM's dropout masks; and the
+        device generator handed to ``input_pipeline``.
     compute_dtype: None or 'bfloat16' (autocast).
     device: defaults to cuda; without a card pass ``device='cpu'``.
+    input_pipeline: None or ``pipeline(generator, xs, train) -> xs`` on the
+        batch's device tensors (e.g. ``ops.augment.augment_batch`` for
+        training and ``normalize_batch`` otherwise).
     """
 
     def __init__(self, PATH: str, data, model, optimizer="default",
@@ -103,7 +117,6 @@ class Learner:
                  fsdp_sharding: bool = False, grad_accum: int = 1,
                  mixup: float = 0.0, distill=None):
         for name, asked in (("mesh", mesh is not None),
-                            ("input_pipeline", input_pipeline is not None),
                             ("zero_sharding", zero_sharding),
                             ("fsdp_sharding", fsdp_sharding),
                             ("grad_accum", grad_accum != 1),
@@ -128,12 +141,17 @@ class Learner:
                           else optimizer)
         self.set_compute_dtype(compute_dtype)
         self.generator = torch.Generator().manual_seed(seed)
+        self.input_pipeline = input_pipeline
+        self.pipeline_generator = torch.Generator(self.device).manual_seed(
+            seed)
         self.params = param_paths(self.model)
         self.partition = build_partition(
             self.model, getattr(model, "layer_group_prefixes", None),
             getattr(model, "head_prefixes", ("head",)))
         self.opt_state = self.optimizer.init(self.params)
         self.frozen = False
+        self.bn_frozen: Optional[str] = None
+        self._trainable_override: Optional[tuple] = None
         self._grad_mask = None
         self.loss_sched: list = []
         self.lr_sched: list = []
@@ -144,6 +162,7 @@ class Learner:
         self._global_step = 0
         fwd = inspect.signature(self.model.forward).parameters
         self._accepts_generator = "generator" in fwd
+        self._accepts_bn_frozen = "bn_frozen" in fwd
         try:
             sig = inspect.signature(self.loss_func).parameters
             self._loss_accepts_mask = "mask" in sig or len(sig) >= 3
@@ -196,10 +215,37 @@ class Learner:
         self.opt_state = self.optimizer.init(self.params)
 
     def bn_freeze(self, freeze_type: str = "non_head"):
-        raise NotImplementedError(f"Learner.bn_freeze {_TODO}")
+        """Freeze BatchNorm layers: their parameters stop training and
+        their running statistics stop updating, everywhere ('all') or
+        outside the head ('non_head') (Learner.py:248-264)."""
+        if freeze_type not in ("all", "non_head"):
+            raise ValueError("freeze_type must be 'all' or 'non_head'")
+        self.bn_frozen = freeze_type
+        self.opt_state = self.optimizer.init(self.params)
+
+    def bn_unfreeze(self):
+        self.bn_frozen = None
+        self.opt_state = self.optimizer.init(self.params)
+
+    def set_trainable(self, fn):
+        """Train exactly the parameters whose path ``fn(path) -> bool``
+        selects, in place of the freeze / bn_freeze masks;
+        ``set_trainable(None)`` restores them.  Resets the optimizer
+        state."""
+        if fn is None:
+            self._trainable_override = None
+        else:
+            mask = tuple(bool(fn(p)) for p in self.partition.paths)
+            if not any(mask):
+                raise ValueError(
+                    "set_trainable: the predicate selects no parameter")
+            self._trainable_override = mask
+        self.opt_state = self.optimizer.init(self.params)
 
     def _trainable(self) -> tuple:
-        return self.partition.trainable_mask(self.frozen)
+        if self._trainable_override is not None:
+            return self._trainable_override
+        return self.partition.trainable_mask(self.frozen, self.bn_frozen)
 
     # ------------------------------------------------ mixed precision
 
@@ -220,11 +266,10 @@ class Learner:
 
     def _to_device(self, batch: Batch):
         """(xs, y, mask) on the device: pinned host copies sent without
-        blocking the host; integer arrays become int64."""
+        blocking the host; uint8 arrays (images) stay uint8, other integer
+        arrays become int64."""
         def put(a):
-            t = torch.from_numpy(np.ascontiguousarray(a))
-            if not t.is_floating_point():
-                t = t.long()
+            t = _as_batch_tensor(torch.from_numpy(np.ascontiguousarray(a)))
             if self.device.type == "cuda":
                 t = t.pin_memory()
             return t.to(self.device, non_blocking=True)
@@ -248,7 +293,18 @@ class Learner:
         kw = {"train": train}
         if self._accepts_generator:
             kw["generator"] = self.generator
+        if self._accepts_bn_frozen:
+            kw["bn_frozen"] = self.bn_frozen
         return kw
+
+    def set_input_pipeline(self, pipeline):
+        """Replace the device input pipeline."""
+        self.input_pipeline = pipeline
+
+    def _pipeline(self, xs, train: bool):
+        if self.input_pipeline is None:
+            return xs
+        return tuple(self.input_pipeline(self.pipeline_generator, xs, train))
 
     def _apply_loss(self, y_pred, y, mask):
         if self._loss_accepts_mask:
@@ -285,6 +341,7 @@ class Learner:
             p.grad = None
         self._global_step += 1
         self.model.train()
+        xs = self._pipeline(xs, True)
         with self._autocast():
             y_pred = self.model(*xs, **self._model_kwargs(True))
         loss = self._apply_loss(_to_f32(y_pred), y, mask)
@@ -310,11 +367,11 @@ class Learner:
 
     @torch.no_grad()
     def evaluate(self, dataset_type: str, metrics: Sequence = ()):
-        """Average loss over 'train' or 'val'; for 'val' also the given
-        batch metrics ``m(y_pred, y, mask)``, in the reference's shapes:
-        'train' -> float, 'val' -> [loss(, metric values)]
-        (Learner.py:395).  Accuracy of classification targets is not
-        ported yet."""
+        """Average loss over 'train' or 'val'; for 'val' also the accuracy
+        of 'single_label' and 'multi_label' targets and the given batch
+        metrics ``m(y_pred, y, mask)``, in the reference's shapes: 'train'
+        -> float, 'val' -> [loss(, accuracy)(, metric values)]
+        (Learner.py:395)."""
         if any(isinstance(m, str) or getattr(m, "is_end_metric", False)
                for m in metrics):
             raise NotImplementedError(f"end metrics {_TODO}")
@@ -324,24 +381,43 @@ class Learner:
         total = torch.zeros((), dtype=torch.float64, device=dev)
         count = torch.zeros((), dtype=torch.float64, device=dev)
         mvals = torch.zeros(len(metrics), dtype=torch.float64, device=dev)
+        correct = torch.zeros((), dtype=torch.float64, device=dev)
         self.model.eval()
         for _, (xs, y, mask) in self._device_batches(dl):
-            with self._autocast():
-                y_pred = self.model(*xs, **self._model_kwargs(False))
-            y_pred = _to_f32(y_pred)
+            y_pred = self._eval_forward(xs)
             n = mask.sum()
             total += self._apply_loss(y_pred, y, mask) * n
             count += n
             for i, m in enumerate(metrics):
                 mvals[i] += m(y_pred, y, mask) * n
+            logits = y_pred[0] if isinstance(y_pred, tuple) else y_pred
+            if self.target_type == "single_label":
+                correct += ((logits.argmax(1) == y) * mask).sum()
+            elif self.target_type == "multi_label":
+                hit = torch.round(torch.sigmoid(logits)) == y.to(logits.dtype)
+                correct += (hit * mask[:, None]).sum()
         count = float(count)
         avg_loss = float(total) / count
         if dataset_type == "train":
             return avg_loss
         results: list = [avg_loss]
+        if self.target_type == "single_label":
+            results.append(float(correct) / count)
+        elif self.target_type == "multi_label":
+            cats = getattr(self.data, "categories", None)
+            C = (len(cats) if cats is not None
+                 else np.asarray(self.data.val_dl.peek().y).shape[-1])
+            results.append(float(correct) / (count * C))
         if len(metrics):
             results.append(mvals.cpu().numpy() / count)
         return results
+
+    def _eval_forward(self, xs):
+        """Eval-mode forward of device tensors through the input pipeline;
+        outputs float32."""
+        xs = self._pipeline(xs, False)
+        with self._autocast():
+            return _to_f32(self.model(*xs, **self._model_kwargs(False)))
 
     @torch.no_grad()
     def predict1minibatch(self, xs):
@@ -349,12 +425,40 @@ class Learner:
         tuple of arrays or tensors, or one of them.  Outputs are float32."""
         if not isinstance(xs, (tuple, list)):
             xs = (xs,)
-        xs = tuple(torch.as_tensor(np.asarray(x) if not torch.is_tensor(x)
-                                   else x, device=self.device) for x in xs)
-        xs = tuple(x.long() if not x.is_floating_point() else x for x in xs)
+        xs = tuple(_as_batch_tensor(torch.as_tensor(
+            np.asarray(x) if not torch.is_tensor(x) else x,
+            device=self.device)) for x in xs)
         self.model.eval()
-        with self._autocast():
-            return _to_f32(self.model(*xs, **self._model_kwargs(False)))
+        return self._eval_forward(xs)
+
+    @torch.no_grad()
+    def predict(self, dl, correct_probs: bool = True):
+        """Predictions over a whole loader, or 'train' / 'val' / 'test'
+        (Learner.py:286-393): a (N, ...) array for 'cont' targets, else
+        [probs, labels] (softmax and argmax for 'single_label', sigmoid
+        and rounding for 'multi_label'; ``correct_probs=False`` gives the
+        logits in place of the probabilities)."""
+        if isinstance(dl, str):
+            dl = {"train": self.data.train_dl, "val": self.data.val_dl,
+                  "test": getattr(self.data, "test_dl", None)}[dl]
+        self.model.eval()
+        outs = []
+        for batch, (xs, _, _) in self._device_batches(dl):
+            y_pred = self._eval_forward(xs)
+            if isinstance(y_pred, tuple):
+                y_pred = y_pred[0]
+            outs.append(y_pred[:batch.n_valid])
+        y_pred = torch.cat(outs)
+        if self.target_type == "cont":
+            return y_pred.cpu().numpy()
+        if self.target_type == "multi_label":
+            probs = torch.sigmoid(y_pred)
+            labels = torch.round(probs).long()
+        else:
+            probs = torch.softmax(y_pred, dim=1)
+            labels = probs.argmax(1)
+        probs = probs if correct_probs else y_pred
+        return [probs.cpu().numpy(), labels.cpu().numpy()]
 
     # ------------------------------------------------ training
 
@@ -405,6 +509,8 @@ class Learner:
             self.save(save_name)
         values, run_times = [], []
         col_names = ["train_loss", "val_loss"]
+        if self.target_type in ("single_label", "multi_label"):
+            col_names.append("accuracy")
         if len(metrics):
             col_names.append("metrics")
         i = 0
@@ -541,6 +647,13 @@ class Learner:
         if isinstance(lr, (list, tuple)) and len(lr) != self.n_groups:
             raise ValueError(f"per-group lr list has length {len(lr)}, "
                              f"expected {self.n_groups} layer groups")
+
+
+def _as_batch_tensor(t: torch.Tensor) -> torch.Tensor:
+    """uint8 and floats as they are, other integer types as int64."""
+    if t.is_floating_point() or t.dtype == torch.uint8:
+        return t
+    return t.long()
 
 
 def _first(x):

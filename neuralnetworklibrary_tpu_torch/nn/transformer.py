@@ -271,19 +271,22 @@ class TransformerBlock(nn.Module):
     """Pre-norm block: x + attn(ln1(x)), then + mlp(ln2(x)) with a
     ``d_ff`` hidden width (0: 4*d_model); ``drop`` reaches the attention
     probabilities and the MLP output; ``act``, ``gated`` and
-    ``exact_gelu`` go to the :class:`MLP`."""
+    ``exact_gelu`` go to the :class:`MLP`.  ``causal=False`` makes the
+    attention bidirectional (an encoder stack, as ``nn.vit.ViT`` builds)."""
 
     def __init__(self, d_model: int, n_heads: int, *, d_ff: int = 0,
                  drop: float = 0.0, n_kv_heads: int = 0, window: int = 0,
                  sinks: bool = False, rms_norm: bool = False,
                  norm_eps: float = 1e-6, act: Optional[str] = None,
-                 gated: bool = False, exact_gelu: bool = False, device=None):
+                 gated: bool = False, exact_gelu: bool = False,
+                 causal: bool = True, device=None):
         super().__init__()
         norm = nn.RMSNorm if rms_norm else nn.LayerNorm
         self.ln1 = norm(d_model, eps=norm_eps, device=device)
         self.attn = CausalSelfAttention(d_model, n_heads,
                                         n_kv_heads=n_kv_heads, window=window,
-                                        sinks=sinks, drop=drop, device=device)
+                                        sinks=sinks, drop=drop, causal=causal,
+                                        device=device)
         self.ln2 = norm(d_model, eps=norm_eps, device=device)
         self.mlp = MLP(d_model, d_ff or 4 * d_model, drop, act=act,
                        gated=gated, exact_gelu=exact_gelu, device=device)

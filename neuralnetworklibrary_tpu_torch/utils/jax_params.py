@@ -2,11 +2,15 @@
 
 The port keeps the flax names as module attribute names, so the mapping is
 a renaming: a flax ``Dense`` ``kernel`` (in, out) becomes ``nn.Linear``
-``weight`` (out, in), a norm's ``scale`` becomes ``weight``, and every
-other leaf (biases, embeddings, sinks, the LSTM's ``w_ih``/``w_hh``/
+``weight`` (out, in), a flax ``Conv`` ``kernel`` (kh, kw, in/groups, out)
+becomes ``nn.Conv2d`` ``weight`` (out, in/groups, kh, kw), a norm's
+``scale`` becomes ``weight``, and every other leaf (biases, embeddings,
+sinks, ViT's ``cls``/``pos_embed``, the LSTM's ``w_ih``/``w_hh``/
 ``b_ih``/``b_hh``, already in the port's layout) keeps its name.  A flax
 ``carry`` collection (the AWD-LSTM encoder's (h, c)) goes into the
-module's buffers of the same names.
+module's buffers of the same names, and a ``batch_stats`` collection
+(``mean``, ``var`` of each BatchNorm) into its ``running_mean`` and
+``running_var``.
 """
 
 from __future__ import annotations
@@ -38,8 +42,19 @@ def _check_names(kind: str, want, got):
                          f"{missing}, extra {extra}")
 
 
-def load_jax_params(model: torch.nn.Module, tree, carry=None
-                    ) -> torch.nn.Module:
+def _bn_buffers(model: torch.nn.Module) -> dict:
+    """{flax batch_stats name: buffer} of every BatchNorm of ``model``."""
+    out = {}
+    for mname, mod in model.named_modules():
+        if isinstance(mod, torch.nn.modules.batchnorm._BatchNorm):
+            pre = f"{mname}." if mname else ""
+            out[pre + "mean"] = mod.running_mean
+            out[pre + "var"] = mod.running_var
+    return out
+
+
+def load_jax_params(model: torch.nn.Module, tree, carry=None,
+                    batch_stats=None) -> torch.nn.Module:
     """Fill ``model``'s parameters from a flax params tree (a nested dict of
     arrays, e.g. ``variables["params"]`` converted with ``np.asarray``),
     in place, casting to each parameter's dtype and device.
@@ -48,6 +63,10 @@ def load_jax_params(model: torch.nn.Module, tree, carry=None
     ``state["carry"]``), replaces the model's buffers of the same names:
     every buffer must be named, and each takes the tree's batch size; the
     other dimensions must agree.
+
+    ``batch_stats``, a flax ``batch_stats`` collection, fills every
+    BatchNorm's ``running_mean`` (from ``mean``) and ``running_var`` (from
+    ``var``) in place: every BatchNorm must be named, with its shape.
 
     Raises ValueError on a parameter (or buffer) the tree lacks, a leaf the
     model has no parameter (or buffer) for, or a shape mismatch.  Returns
@@ -59,6 +78,8 @@ def load_jax_params(model: torch.nn.Module, tree, carry=None
         arr = np.asarray(arr)
         if name.endswith(".kernel") and arr.ndim == 2:
             arr = arr.T
+        elif name.endswith(".kernel") and arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)
         flat[_torch_name(name)] = arr
     _check_names("params", params, flat)
     for name, arr in flat.items():
@@ -75,7 +96,19 @@ def load_jax_params(model: torch.nn.Module, tree, carry=None
                 raise ValueError(f"{name}: carry shape {tuple(arr.shape)} "
                                  f"does not end in the model's "
                                  f"{tuple(buffers[name].shape[1:])}")
+    stats = {}
+    if batch_stats is not None:
+        bn = _bn_buffers(model)
+        stats = {name: np.asarray(arr) for name, arr in _flatten(batch_stats)}
+        _check_names("batch_stats", bn, stats)
+        for name, arr in stats.items():
+            if tuple(arr.shape) != tuple(bn[name].shape):
+                raise ValueError(f"{name}: batch_stats shape "
+                                 f"{tuple(arr.shape)} != model shape "
+                                 f"{tuple(bn[name].shape)}")
     with torch.no_grad():
+        for name, arr in stats.items():
+            bn[name].copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
         for name, arr in flat.items():
             params[name].copy_(torch.from_numpy(
                 np.array(arr, dtype=np.float32)))
