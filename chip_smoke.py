@@ -51,7 +51,9 @@ name and power limit from nvidia-smi):
           cluster size at H 1150 and 400 (one that does not fit is listed);
           K6 and K7 twice, bit for bit; and the autograd Function end to end
           (K6, K7 and the weight-gradient product) on the card against the
-          same Function on the CPU, xp in float32 and in bf16.
+          same Function on the CPU, xp in float32 and in bf16; and the
+          classifier's long buckets, B 64 at T 1024 and 2048 for H 1150
+          and 400.
 - lm:     the AWD-LSTM 400-1150-3 of bench.py's bench_lm (vocab 30,001, bs
           64, bptt 75) through the port's Learner, on a random-token corpus
           built as bench.py builds it: (a) one f32 forward/backward at B 4,
@@ -102,6 +104,34 @@ name and power limit from nvidia-smi):
           10 steps and evaluate over 2 batches.  K1-K3 run bidirectional
           at T 197; their launches over (b) are exact (12 x 10 each, and
           12 x 2 more K1 in the evaluation).
+- classifier: the IMDB classifier, ULMFiT stage 2 (examples/imdb.py:
+          78-96): AWD-LSTM 400-1150-3, vocab 60,002, attention 100, fc
+          (100,), random weights, on 1,920 train and 640 val synthetic
+          reviews (lengths log-normal, median 180 tokens, sigma 0.75,
+          clipped to [10, 3000]) in the length-bucketed loader (bs 64,
+          bpg 10, buckets 64-4096): (a) an LM Learner at the same vocab,
+          from_language_model and the encoder transfer, bit for bit; (b)
+          float32, eval mode, kernels against the float32 step loop at
+          buckets 64 and 512 (loss, logits, encoder output, encoder
+          gradients); (c) bf16, Adam2, wd 1e-6, clip 0.4: freeze() and 3
+          steps (the encoder unchanged, no K7 launch), unfreeze() and 12
+          steps of a new epoch (the longest bucket first) at lr [1e-3,
+          3e-3, 1e-2], evaluate('val', [TextClassificationAccuracy(),
+          'auc']), predict('val').  K6/K7 launches exact per stage; ms per
+          step by bucket, documents/s and non-pad tokens/s (median of
+          steps 2-12), peak memory.
+- collab: examples/movielens.py on its synthetic table (100k ratings,
+          600 users, 9,000 items, val 0.2): CollabFilterNet emb 30, bs
+          8192, Adam2, fit_one_cycle(0.01, 2), wd 1e-4; one step's
+          gradients and the trained val MSE, card against CPU; a second
+          member, the 2-member CollabFilterEnsembleNet against
+          combine_preds; rows/s.
+- structured: bench.py's bench_structured (200k rows, 20 categorical
+          columns of 50 levels, 20 continuous, head [1000, 500, 1], bs
+          1024, Adam2, wd 1e-4, lr 1e-3): a train forward and backward,
+          card against CPU (output, BatchNorm statistics, gradients); one
+          epoch, then evaluate, as structured_rows_per_sec; a 'cat' target
+          (5 classes) at B 1024 whose evaluate gives [loss, accuracy].
 - timing: each call's device time by CUDA events, with the L2 flushed
           and the card held by a spin kernel while the host enqueues the
           call (Timer); the median and the spread (min, max) of the reps.
@@ -114,13 +144,15 @@ name and power limit from nvidia-smi):
           the strip cut to the live positions with the kv heads shared,
           and beside it SDPA on the whole masked strip.  K6/K7 at the LM's
           widths with their plan and the same launch with only its grid
-          barriers (the per-step floor).  K1-K3 also at the ViT-B/16
+          barriers (the per-step floor), and at the classifier's B 64,
+          T 512 (IMDB's common bucket).  K1-K3 also at the ViT-B/16
           shape (B 64, H 12, T 197, hd 64, bidirectional), with SDPA's
           cuDNN and flash backends pinned as at the GPT-2 shape.  The
           flash kernel phase also holds K1-K3 at that shape, bf16 and f32.
 
 --profile adds torch.profiler breakdowns of one more serve run and of one
-more train step of each model (senet154 and ViT-B/16 included): device
+more train step of each model (senet154, ViT-B/16, the classifier at
+bucket 512 with K6 + K7's share, collab and structured included): device
 time by kernel (for the serve run also every K5 kernel by name), the
 copy and NCHW/NHWC transpose kernels, and, for the train steps, the host
 ops with the most host time of their own.  --tile-sweep adds K5 at S
@@ -141,6 +173,7 @@ printing anything else.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import re
 import statistics
@@ -297,6 +330,30 @@ VISION_CPU_TOL = 1e-3
 # step between neighbouring pixels (up to 1 on noise images): 4 * 2**-16
 # on the [0, 1] image, over the smallest imagenet std after normalizing
 AUG_TOL = 4 * 2 ** -16 / 0.224
+# the IMDB classifier, ULMFiT stage 2 (examples/imdb.py:78-96): the
+# AWD-LSTM 400-1150-3 at numericalize's max_vocab 60,000 + specials, 2
+# classes, attention 100, fc (100,), bs 64, bpg 10; reviews log-normal
+# around IMDB's median of ~180 tokens (sigma 0.75), clipped to [10, 3000]
+IMDB_CLF = dict(vocab=60002, classes=2, attn=100, fc=(100,), B=64, bpg=10,
+                n_train=1920, n_val=640, median=180, sigma=0.75, min_len=10,
+                max_len=3000, frozen_steps=3, frozen_lr=1e-2,
+                unfrozen_steps=12, lrs=[1e-3, 3e-3, 1e-2], wd=1e-6,
+                clip=0.4)
+CLF_CHECK_T = (64, 512)      # buckets of the f32 kernel-vs-loop check
+CLF_LONG_T = (1024, 2048)    # K6/K7 against their plain versions at B 64
+CLF_TIMING_T = 512           # K6/K7 timed at B 64 (IMDB's common bucket)
+# MovieLens as examples/movielens.py runs it on its synthetic table
+MOVIELENS = dict(n=100_000, users=600, items=9000, emb=30, bs=8192,
+                 lr=0.01, epochs=2, wd=1e-4, val_frac=0.2)
+# Rossmann-shaped, as bench.py's bench_structured (:458-506); the 'cat'
+# variant bins y into 5 quantile classes
+ROSSMANN = dict(n=200_000, n_cat=20, levels=50, n_cont=20,
+                head=[1000, 500, 1], bs=1024, lr=1e-3, wd=1e-4, val_frac=0.1,
+                classes=5, cat_steps=10)
+# collab and structured, card against CPU in float32 (TF32 off): the same
+# sums in other orders (cuBLAS's kernels, the embedding gradients'
+# atomic adds), each result within 1e-4 of its largest entry
+CARD_CPU_TOL = 1e-4
 
 
 def emit(obj):
@@ -1312,10 +1369,11 @@ def phase_serve(seed, profile=False):
     return launches
 
 
-def profile_step(step, phase="train_profile"):
+def profile_step(step, phase="train_profile", focus=()):
     """Device time by kernel over one train step under torch.profiler, and
     the host ops that took the most host time of their own (the step is
-    host-bound where the device is idle)."""
+    host-bound where the device is idle); with ``focus``, the time and
+    share of the kernels whose names hold each of its strings."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1352,6 +1410,10 @@ def profile_step(step, phase="train_profile"):
           "top_kernels": [{"name": k[:90], "ms": us / 1e3, "calls": n,
                            "share": us / 1e3 / total_ms}
                           for us, k, n in rows[:14]],
+          **({"focus": {f: {"ms": ms, "share": ms / total_ms}
+                        for f in focus for ms in [sum(
+                            us for us, k, _ in rows if f in k) / 1e3]}}
+             if focus else {}),
           "host_ms_own": sum(r[0] for r in host) / 1e3,
           "top_host_ops": [{"name": k[:60], "ms": us / 1e3, "calls": n}
                            for us, k, n in host[:10]]})
@@ -2004,6 +2066,10 @@ def phase_lstm_kernel(seed):
               for H in (24, 400, 1150)]
     # odd H, and more batch rows than one chunk (K7 at B 128, K6 at B 1100)
     shapes += [(3, 7, 25), (128, 7, 1150), (1100, 3, 24)]
+    # the classifier's long buckets (whole IMDB reviews from a zero state)
+    long_shapes = [(64, T, H) for T in CLF_LONG_T for H in (1150, 400)]
+    shapes += long_shapes
+    long_share = {}
     for B, T, H in shapes:
         (got, want), (bgot, bwant), _ = lstm_pair(lstm_case(rng, B, T, H))
         torch.cuda.synchronize()
@@ -2017,6 +2083,11 @@ def phase_lstm_kernel(seed):
                 fail(f"lstm {kind} B={B} T={T} H={H}: max|err| {errs} "
                      f"past {LSTM_TOL[kind]}")
             if (B, T) == (64, 75) and H in (400, 1150):
+                key = "lstm_" + kind
+                main_err[key] = max(main_err[key], max(errs.values()))
+            if (B, T, H) in long_shapes:
+                long_share[f"B{B}_T{T}_H{H}_{kind}"] = {
+                    "max_abs_err": errs, "share_of_tol": share}
                 key = "lstm_" + kind
                 main_err[key] = max(main_err[key], max(errs.values()))
         n_cases += 1
@@ -2058,6 +2129,7 @@ def phase_lstm_kernel(seed):
           "worst_share_of_tol": worst_share,
           "tol_atol_rtol": LSTM_TOL,
           "main_shape_max_abs_err": main_err,
+          "classifier_long_T": long_share,
           "edge_cases": edges, "edge_worst_share_of_tol": edge_worst,
           "bit_identical_calls": bits,
           "plan_1150": {k: kernel_plan(k, 64, 1150) for k in ("fwd", "bwd")},
@@ -2281,8 +2353,13 @@ def phase_lstm_timing(seed):
     rng = np.random.default_rng(seed + 8)
     timer = Timer()
     rows = {}
-    B, T = AWD_LSTM["B"], AWD_LSTM["bptt"]
-    for H, I in ((1150, 1150), (400, 1150)):   # layers 1 and 2 of the LM
+    B = AWD_LSTM["B"]
+    # layers 1 and 2 of the LM at bptt 75, then of the classifier at
+    # IMDB's common bucket
+    for T, H, I in ((AWD_LSTM["bptt"], 1150, 1150),
+                    (AWD_LSTM["bptt"], 400, 1150),
+                    (CLF_TIMING_T, 1150, 1150), (CLF_TIMING_T, 400, 1150)):
+        shape = "lm" if T == AWD_LSTM["bptt"] else "classifier"
         fargs, bargs = lstm_timing_inputs(rng, B, T, H)
         st = {"lstm_fwd": timer.stats(lambda: lstm_fwd(*fargs)),
               "lstm_bwd": timer.stats(lambda: lstm_bwd(*bargs))}
@@ -2316,8 +2393,9 @@ def phase_lstm_timing(seed):
             kind = name.split("_")[1]
             row = timed_row(st[name], plain[name], library[name],
                             lstm_bound(B, T, H, name))
-            emit({"phase": "timing", "kernel": name, "B": B, "T": T, "H": H,
-                  **row, "ms_per_step": row["ms"] / T,
+            emit({"phase": "timing", "kernel": name, "shape": shape,
+                  "B": B, "T": T, "H": H, **row,
+                  "ms_per_step": row["ms"] / T,
                   "plan": kernel_plan(kind, B, H),
                   "barriers_only_ms": floor[name]["ms"],
                   "barriers_only_ms_spread": [floor[name]["min"],
@@ -2332,9 +2410,12 @@ def phase_lstm_timing(seed):
                                "input projection",
                   "library_fwd_bwd_ms": lib_fwd_bwd["ms"],
                   "share_of_bound": row["bound_ms"] / row["ms"]})
-            if H == 1150:   # the main path's widest layers
-                rows[name] = {**row, "barriers_only_ms": floor[name]["ms"],
-                              "plan": kernel_plan(kind, B, H)}
+            full = {**row, "barriers_only_ms": floor[name]["ms"],
+                    "library_fwd_bwd_ms": lib_fwd_bwd["ms"]}
+            if shape == "lm" and H == 1150:   # the LM's widest layers
+                rows[name] = {**full, "plan": kernel_plan(kind, B, H)}
+            elif shape == "classifier":
+                rows[name].setdefault("classifier", {})[f"T{T}_H{H}"] = full
     return rows
 
 
@@ -2805,21 +2886,27 @@ def graft_pipeline(generator, xs, train):
         xs[1:])
 
 
+def card_and_cpu_grads(models, xs, y, loss_fn):
+    """One train-mode forward and backward of the same model on each device
+    (xs, y on the CPU): [(output, {name: grad}), ...] on the CPU."""
+    out = []
+    for m in models:
+        dev = next(m.parameters()).device
+        m.zero_grad(set_to_none=True)
+        pred = m(*[x.to(dev) for x in xs], train=True)
+        loss_fn(pred, y.to(dev)).backward()
+        out.append((pred.detach().cpu(),
+                    {n: p.grad.cpu() for n, p in m.named_parameters()}))
+    return out
+
+
 def grads_err(models, x, y):
     """One train-mode forward and backward of the same model on each
     device (x, y on the CPU): max |logits diff|, max |logits|, max |grad
     diff| and max |grad| over every parameter."""
     import torch.nn.functional as F
 
-    out = []
-    for m in models:
-        dev = next(m.parameters()).device
-        m.zero_grad(set_to_none=True)
-        logits = m(x.to(dev), train=True)
-        F.cross_entropy(logits, y.to(dev)).backward()
-        out.append((logits.detach().cpu(),
-                    {n: p.grad.cpu() for n, p in m.named_parameters()}))
-    (lc, gc), (lg, gg) = out
+    (lc, gc), (lg, gg) = card_and_cpu_grads(models, [x], y, F.cross_entropy)
     return (float((lg - lc).abs().max()), float(lc.abs().max()),
             max(float((gg[n] - g).abs().max()) for n, g in gc.items()),
             max(float(g.abs().max()) for g in gc.values()))
@@ -3148,6 +3235,553 @@ def phase_vit(seed, profile=False):
     return launches
 
 
+# ----------------------------------------------------- the other workloads
+
+
+def review_corpus(rng, n, cfg):
+    """n synthetic IMDB-like reviews as a numericalized TextDataset:
+    lengths log-normal (median CLF median, sigma), clipped; token ids
+    uniform over the vocabulary past the four specials, with 5% of each
+    review drawn from 50 words of its label's own (so the label can be
+    learned); labels balanced at random."""
+    from neuralnetworklibrary_tpu_torch.applications.text import TextDataset
+
+    V = cfg["vocab"]
+    lens = np.clip(np.round(np.exp(rng.normal(np.log(cfg["median"]),
+                                              cfg["sigma"], n))),
+                   cfg["min_len"], cfg["max_len"]).astype(int)
+    labels = rng.integers(0, cfg["classes"], n)
+    texts = []
+    for L, lab in zip(lens, labels):
+        t = rng.integers(4, V, L)
+        planted = rng.random(L) < 0.05
+        t[planted] = 4 + 50 * lab + rng.integers(0, 50, planted.sum())
+        texts.append(t.tolist())
+    ds = object.__new__(TextDataset)
+    ds.stoi = {"_unk_": 0, "_pad_": 1, "_bos_": 2, "_eos_": 3,
+               **{f"w{i}": i for i in range(4, V)}}
+    ds.texts, ds.labels = texts, labels.tolist()
+    ds.num_tokens = int(lens.sum())
+    ds.label_dict = {i: i for i in range(cfg["classes"])}
+    return ds
+
+
+def clf_kernel_vs_loop(model, batches, seed):
+    """The classifier in float32, eval mode, on each batch, the kernels'
+    path (lstm_kernel None) against the float32 step loop (False): the CE
+    loss, the logits and the encoder's output; and the gradient of every
+    encoder parameter for sum(enc_out * R), R a fixed normal draw of
+    enc_out's shape.  Returns one entry per batch.
+
+    The kernels sit in the encoder, so its parameters' gradients are the
+    ones gated.  The decoder's are not: from random weights the reviews'
+    pooled features differ by a few percent across the batch, so a ReLU
+    or attention unit near its kink flips for every review at once when
+    the features move by the bf16 rounding of the kernels' path, and a
+    whole row of its gradient changes; the CE gradients (decoder
+    included) are reported beside, ungated."""
+    import torch.nn.functional as F
+
+    out = []
+    gen = torch.Generator().manual_seed(seed)
+    for b in batches:
+        x = torch.from_numpy(b.xs[0]).long().cuda()
+        y = torch.from_numpy(b.y).long().cuda()
+        res = []
+        for kernel in (None, False):
+            model.lstm_kernel = kernel
+            model.zero_grad(set_to_none=True)
+            logits, enc_out = model(x)
+            loss = F.cross_entropy(logits, y)
+            loss.backward(retain_graph=True)
+            ce_grads = {n: p.grad.clone()
+                        for n, p in model.named_parameters()}
+            if kernel is None:
+                R = torch.randn(enc_out.shape, generator=gen).to(
+                    enc_out.device)
+            model.zero_grad(set_to_none=True)
+            (enc_out * R).sum().backward()
+            res.append((logits.detach(), enc_out.detach(),
+                        float(loss.detach()), ce_grads,
+                        {n: p.grad.clone()
+                         for n, p in model.enc.named_parameters()}))
+        model.lstm_kernel = None
+        model.zero_grad(set_to_none=True)
+        (lk, ek, lossk, cek, gk), (ll, el, lossl, cel, gl) = res
+        g_err = {n: rel_err(gk[n], g) for n, g in gl.items()}
+        # (the attention scores' biases have gradient 0, a softmax over
+        # time not seeing a shift common to every step: left out)
+        ce_err = {n: rel_err(cek[n], g) for n, g in cel.items()
+                  if n not in ("dec.attn1.bias", "dec.attn2.bias")}
+        entry = {"T": x.shape[1], "loss_kernel": lossk, "loss_loop": lossl,
+                 "loss_rel_err": abs(lossk - lossl) / abs(lossl),
+                 "logit_err_over_max": rel_err(lk, ll),
+                 "enc_out_err_over_max": rel_err(ek, el),
+                 "enc_grad_err_over_max": max(g_err.values()),
+                 "worst_enc_grad": max(g_err, key=g_err.get),
+                 "ce_grad_err_over_max_ungated": max(ce_err.values()),
+                 "worst_ce_grad": max(ce_err, key=ce_err.get)}
+        if not (entry["loss_rel_err"] <= LM_LOSS_RTOL
+                and max(entry["logit_err_over_max"],
+                        entry["enc_out_err_over_max"],
+                        entry["enc_grad_err_over_max"]) <= LM_GRAD_TOL):
+            fail(f"classifier f32 kernel vs loop at T {x.shape[1]}: {entry}")
+        out.append(entry)
+    return out
+
+
+def phase_classifier(seed, profile=False):
+    """The IMDB classifier, ULMFiT stage 2 (examples/imdb.py:78-96), on the
+    card: K6 at every forward, K7 at the unfrozen steps' backward."""
+    import tempfile
+    import types
+
+    import torch.nn.functional as F
+
+    from neuralnetworklibrary_tpu_torch.applications.text import (
+        LanguageModelNet,
+        RegSeqCrossEntropyLoss,
+        TextClassificationAccuracy,
+        TextClassificationDataObj,
+        TextClassificationNet,
+    )
+    from neuralnetworklibrary_tpu_torch.learner import Learner
+    from neuralnetworklibrary_tpu_torch.ops.lstm_scan import (
+        lstm_bwd,
+        lstm_fwd,
+    )
+
+    cfg = IMDB_CLF
+    B = cfg["B"]
+    rng = np.random.default_rng(seed + 31)
+    torch.manual_seed(seed)
+    t0 = time.perf_counter()
+    data = TextClassificationDataObj(review_corpus(rng, cfg["n_train"], cfg),
+                                     review_corpus(rng, cfg["n_val"], cfg),
+                                     None, B, bpg=cfg["bpg"], seed=seed)
+    setup_s = time.perf_counter() - t0
+    pad = data.stoi["_pad_"]
+    with tempfile.TemporaryDirectory() as tmp:
+        # (1) the LM Learner at the same vocabulary, and the transfer
+        lm = LanguageModelNet(vocab_size=len(data.stoi), pad_token=pad)
+        lm_learner = Learner(tmp, types.SimpleNamespace(
+            target_type="lang_model", bs=B), lm, "Adam2",
+            loss_func=RegSeqCrossEntropyLoss(2.0, 1.0), seed=seed)
+        model, transfer = TextClassificationNet.from_language_model(
+            lm_learner, cfg["classes"], attn_size=cfg["attn"],
+            fc_layer_sizes=cfg["fc"])
+        transfer(model)
+        lm_enc = dict(lm.enc.named_parameters())
+        same = all(torch.equal(p, lm_enc[n])
+                   for n, p in model.enc.named_parameters())
+        del lm, lm_learner, lm_enc, transfer
+        if not same:
+            fail("from_language_model: the encoder differs from the LM's")
+        L = model.num_layers
+
+        # (2) f32: kernels against the float32 step loop at two buckets:
+        # the loader's batch of the 64 shortest reviews (shuffled groups
+        # never make one that short) and the first train batch at 512
+        epoch0 = list(data.train_dl)
+        by_T = {b.xs[0].shape[1]: b for b in reversed(epoch0)}
+        by_T[CLF_CHECK_T[0]] = data.train_dl._make_batch(
+            data.train_dl.order[-B:])
+        if not all(by_T.get(T) is not None and by_T[T].xs[0].shape[1] == T
+                   for T in CLF_CHECK_T):
+            fail(f"no train batch at buckets {CLF_CHECK_T}: {sorted(by_T)}")
+        f32 = clf_kernel_vs_loop(model, [by_T[T] for T in CLF_CHECK_T],
+                                 seed)
+
+        learner = Learner(tmp, data, model, "Adam2", seed=seed,
+                          compute_dtype="bfloat16")
+        learner.init_optimizer(wd=cfg["wd"], clip=cfg["clip"])
+
+        def run(batches, lr):
+            rows = []
+            for b in batches:
+                t0 = time.perf_counter()
+                loss = learner.train1minibatch(b, lr)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                tokens = int((b.xs[0][:b.n_valid] != pad).sum())
+                rows.append({"T": b.xs[0].shape[1], "loss": float(loss),
+                             "ms": secs * 1e3, "docs": b.n_valid,
+                             "tokens": tokens})
+            return rows
+
+        # (3) frozen: the head alone trains, the encoder runs forward only
+        learner.freeze()
+        enc0 = {n: p.detach().clone()
+                for n, p in model.enc.named_parameters()}
+        lstm_fwd.launches = lstm_bwd.launches = 0
+        frozen = run(epoch0[:cfg["frozen_steps"]], cfg["frozen_lr"])
+        launches = {"frozen": {"lstm_fwd": lstm_fwd.launches,
+                               "lstm_bwd": lstm_bwd.launches}}
+        enc_kept = all(torch.equal(p, enc0[n])
+                       for n, p in model.enc.named_parameters())
+        del enc0
+        # (4) unfrozen, a new epoch: the group of the longest reviews
+        # comes first, its 10 batches shuffled
+        learner.unfreeze()
+        learner.init_optimizer(wd=cfg["wd"], clip=cfg["clip"])
+        epoch1 = list(data.train_dl)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lstm_fwd.launches = lstm_bwd.launches = 0
+        steps = run(epoch1[:cfg["unfrozen_steps"]], cfg["lrs"])
+        peak = torch.cuda.max_memory_allocated()
+        launches["unfrozen"] = {"lstm_fwd": lstm_fwd.launches,
+                                "lstm_bwd": lstm_bwd.launches}
+        # (5) evaluate, (6) predict
+        lstm_fwd.launches = lstm_bwd.launches = 0
+        t0 = time.perf_counter()
+        val = learner.evaluate("val", [TextClassificationAccuracy(), "auc"])
+        eval_s = time.perf_counter() - t0
+        launches["evaluate"] = {"lstm_fwd": lstm_fwd.launches,
+                                "lstm_bwd": lstm_bwd.launches}
+        lstm_fwd.launches = lstm_bwd.launches = 0
+        probs, labels = learner.predict("val")
+        launches["predict"] = {"lstm_fwd": lstm_fwd.launches,
+                               "lstm_bwd": lstm_bwd.launches}
+        if profile:
+            b512 = by_T[CLF_TIMING_T]
+            profile_step(lambda: learner.train1minibatch(b512, cfg["lrs"]),
+                         "classifier_profile",
+                         focus=("lstm_fwd_tc_kernel", "lstm_bwd_tc_kernel"))
+    n_eval = len(data.val_dl)
+    want = {"frozen": {"lstm_fwd": L * cfg["frozen_steps"], "lstm_bwd": 0},
+            "unfrozen": {"lstm_fwd": L * cfg["unfrozen_steps"],
+                         "lstm_bwd": L * cfg["unfrozen_steps"]},
+            "evaluate": {"lstm_fwd": L * n_eval, "lstm_bwd": 0},
+            "predict": {"lstm_fwd": L * n_eval, "lstm_bwd": 0}}
+    if launches != want:
+        fail(f"classifier K6/K7 launches {launches} != {want}")
+    if not enc_kept:
+        fail("freeze(): the classifier's encoder moved")
+    losses = [r["loss"] for r in frozen + steps]
+    if not all(np.isfinite(losses)):
+        fail(f"classifier train losses not finite: {losses}")
+    longest = max(b.xs[0].shape[1] for b in epoch1)
+    if max(r["T"] for r in steps) != longest:
+        fail(f"the unfrozen steps ran buckets {[r['T'] for r in steps]}, "
+             f"not the loader's longest, {longest}")
+    y_val = np.concatenate([b.y[:b.n_valid] for b in data.val_dl])
+    pred_acc = float((labels == y_val).mean())
+    if not (probs.shape == (cfg["n_val"], cfg["classes"])
+            and np.allclose(probs.sum(1), 1.0, atol=1e-5)
+            and (labels == probs.argmax(1)).all()
+            and np.isfinite(val[0]) and 0.0 <= val[1][1] <= 1.0
+            and abs(val[1][0] - pred_acc) <= 2.0 / cfg["n_val"]):
+        fail(f"classifier evaluate {val} / predict accuracy {pred_acc}")
+    steady = steps[1:]
+    docs_s = statistics.median(r["docs"] / r["ms"] * 1e3 for r in steady)
+    tok_s = statistics.median(r["tokens"] / r["ms"] * 1e3 for r in steady)
+    ms_by_T = {}
+    for r in steady:
+        ms_by_T.setdefault(r["T"], []).append(r["ms"])
+    emit({"phase": "classifier",
+          "model": "AWD-LSTM 400-1150-3 + attention 100, fc (100,), random "
+                   "weights", "vocab": len(data.stoi),
+          "params": sum(p.numel() for p in model.parameters()),
+          "corpus": {k: cfg[k] for k in ("n_train", "n_val", "median",
+                                         "sigma", "min_len", "max_len")},
+          "setup_s": setup_s,
+          "bucket_counts_train": dict(sorted(collections.Counter(
+              b.xs[0].shape[1] for b in epoch0).items())),
+          "encoder_transfer_bit_identical": same,
+          "f32_kernel_vs_loop": f32,
+          "f32_tol": f"loss {LM_LOSS_RTOL} x |loss|; logits, enc_out "
+                     f"and each encoder gradient of sum(enc_out x R) "
+                     f"{LM_GRAD_TOL} x their largest entry",
+          "dtype": "bfloat16 (autocast)", "B": B, "optimizer": "Adam2",
+          "wd": cfg["wd"], "clip": cfg["clip"],
+          "frozen_lr": cfg["frozen_lr"], "unfrozen_lrs": cfg["lrs"],
+          "frozen_steps": frozen, "unfrozen_steps": steps,
+          "encoder_unchanged_when_frozen": enc_kept,
+          "longest_bucket": longest,
+          "ms_per_step_by_bucket_median": {
+              T: statistics.median(v) for T, v in sorted(ms_by_T.items())},
+          "docs_per_s_median_2_to_12": docs_s,
+          "nonpad_tokens_per_s_median_2_to_12": tok_s,
+          "peak_memory_GB_unfrozen": peak / 1e9,
+          "val_loss": val[0], "val_accuracy": float(val[1][0]),
+          "val_auc": float(val[1][1]), "predict_accuracy": pred_acc,
+          "eval_s": eval_s, "eval_docs_per_s": cfg["n_val"] / eval_s,
+          "kernel_launches": launches})
+    return {k: sum(v[k] for v in launches.values())
+            for k in ("lstm_fwd", "lstm_bwd")}
+
+
+def synthetic_ratings(rng, cfg):
+    """examples/movielens.py's synthetic table, as numpy columns."""
+    n, users, items = cfg["n"], cfg["users"], cfg["items"]
+    u_bias = rng.normal(0, 0.5, users)
+    i_bias = rng.normal(0, 0.5, items)
+    u = rng.integers(0, users, n)
+    i = rng.integers(0, items, n)
+    r = np.clip(3.2 + u_bias[u] + i_bias[i] + rng.normal(0, 0.8, n), 0.5,
+                5.0)
+    return {"userId": u, "movieId": i, "rating": r.astype(np.float32)}
+
+
+def rel_err(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def phase_collab(seed, profile=False):
+    """MovieLens-shaped collaborative filtering (examples/movielens.py)."""
+    import copy
+    import tempfile
+
+    from neuralnetworklibrary_tpu_torch.applications.collab import (
+        CollabFilterDataObj,
+        CollabFilterEnsembleNet,
+        CollabFilterNet,
+        ensemble_params,
+    )
+    from neuralnetworklibrary_tpu_torch.core.metrics import mse_loss
+    from neuralnetworklibrary_tpu_torch.core.pytree import combine_preds
+    from neuralnetworklibrary_tpu_torch.learner import Learner
+
+    cfg = MOVIELENS
+    rng = np.random.default_rng(seed + 41)
+    t0 = time.perf_counter()
+    data = CollabFilterDataObj.from_dataframes(
+        synthetic_ratings(rng, cfg), "userId", "movieId", "rating",
+        cfg["bs"], val_frac=cfg["val_frac"], seed=seed)
+    setup_s = time.perf_counter() - t0
+    n_train, n_val = len(data.train_ds), len(data.val_ds)
+
+    # (a) one step's gradients, card against CPU
+    torch.manual_seed(seed)
+    model = CollabFilterNet.from_dataobj(data, cfg["emb"])
+    cpu = copy.deepcopy(model).cpu()
+    b = data.train_dl.peek()
+    (pc, gc), (pp, gp) = card_and_cpu_grads(
+        (cpu, model), [torch.from_numpy(b.xs[0]).long()],
+        torch.from_numpy(b.y), mse_loss)
+    grad_err = {n: rel_err(gp[n], g) for n, g in gc.items()}
+    out_err = rel_err(pp, pc)
+    if not (out_err <= CARD_CPU_TOL and max(grad_err.values())
+            <= CARD_CPU_TOL):
+        fail(f"collab card vs CPU: output {out_err}, gradients {grad_err}")
+    model.zero_grad(set_to_none=True)
+
+    # (b) fit_one_cycle(0.01, 2), and a second member for the ensemble
+    members, fit_s, val0 = [], [], None
+    with tempfile.TemporaryDirectory() as tmp:
+        for k in range(2):
+            if k:
+                torch.manual_seed(seed + k)
+                model = CollabFilterNet.from_dataobj(data, cfg["emb"])
+            learner = Learner(tmp, data, model, "Adam2", seed=seed + k)
+            if k == 0:
+                val0 = learner.evaluate("val")[0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            learner.fit_one_cycle(cfg["lr"], cfg["epochs"], wd=cfg["wd"])
+            torch.cuda.synchronize()
+            fit_s.append(time.perf_counter() - t0)
+            members.append((learner, learner.evaluate("val")[0],
+                            learner.predict("val")))
+        # (c) val MSE, card against CPU, on the trained first member
+        cpu = CollabFilterNet.from_dataobj(data, cfg["emb"], device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in
+                             members[0][0].model.state_dict().items()})
+        cpu_val = Learner(tmp, data, cpu, "Adam2",
+                          device="cpu").evaluate("val")[0]
+        # (d) the 2-member ensemble net and combine_preds
+        ens = CollabFilterEnsembleNet([CollabFilterNet.from_dataobj(
+            data, cfg["emb"]) for _ in members])
+        ens.load_state_dict(ensemble_params(
+            [m[0].model.state_dict() for m in members]))
+        ens_learner = Learner(tmp, data, ens, "Adam2")
+        ens_val = ens_learner.evaluate("val")[0]
+        ens_pred = ens_learner.predict("val")
+        if profile:
+            first = members[0][0]
+            profile_step(lambda: first.train1minibatch(b, cfg["lr"]),
+                         "collab_profile")
+    combined = combine_preds([m[2] for m in members], "cont")
+    y_val = data.val_ds.y
+    val_mse = members[0][1]
+    val_err = abs(val_mse - cpu_val) / cpu_val
+    ens_err = float(np.abs(ens_pred - combined).max())
+    if not val_err <= CARD_CPU_TOL:
+        fail(f"collab val MSE card {val_mse} vs CPU {cpu_val}")
+    if not (ens_err <= 1e-5 and abs(float(np.mean((combined - y_val) ** 2))
+                                    - ens_val) <= 1e-4 * ens_val):
+        fail(f"collab ensemble {ens_val} / combine_preds: |diff| {ens_err}")
+    if not (np.isfinite(val_mse) and val_mse < val0):
+        fail(f"collab val MSE {val0} -> {val_mse}")
+    steps = cfg["epochs"] * len(data.train_dl)
+    rows = cfg["epochs"] * n_train + (cfg["epochs"] + 1) * n_val
+    emit({"phase": "collab", "config": "examples/movielens.py: "
+          "CollabFilterNet emb 30, bs 8192, Adam2, fit_one_cycle(0.01, 2), "
+          "wd 1e-4", "ratings": cfg["n"], "users": len(data.labels[0]),
+          "items": len(data.labels[1]), "train_rows": n_train,
+          "val_rows": n_val, "setup_s": setup_s,
+          "card_vs_cpu_output_err_over_max": out_err,
+          "card_vs_cpu_grad_err_over_max": max(grad_err.values()),
+          "card_vs_cpu_tol": CARD_CPU_TOL,
+          "val_mse_before": val0, "val_mse": val_mse,
+          "val_mse_cpu": cpu_val, "val_mse_rel_err": val_err,
+          "member2_val_mse": members[1][1], "ensemble_val_mse": ens_val,
+          "ensemble_vs_combine_preds_max_abs_err": ens_err,
+          "fit_s": fit_s[0], "steps": steps,
+          "ms_per_step_incl_eval": fit_s[0] / steps * 1e3,
+          "rows_per_s": rows / fit_s[0],
+          "rows_counted": "epochs x train rows + (epochs + 1) x val rows "
+                          "(fit_one_cycle evaluates before and after each "
+                          "epoch)"})
+
+
+def rossmann_arrays(rng, cfg):
+    """bench.py's bench_structured table (200k rows, 20 categorical columns
+    of 50 levels, 20 continuous, y) as ProcessDataFrame leaves it: codes
+    1..50 (0 = unknown), continuous standardized by the train rows, y
+    raw; split 0.9 / 0.1 as SplitTrainVal(seed 0)."""
+    from neuralnetworklibrary_tpu_torch.data.split import SplitTrainVal
+
+    n = cfg["n"]
+    x_cat = rng.integers(1, cfg["levels"] + 1, (n, cfg["n_cat"]))
+    x_cont = rng.normal(size=(n, cfg["n_cont"])).astype(np.float32)
+    y = rng.normal(size=n).astype(np.float32)
+    tr, va = SplitTrainVal(list(range(n)), val_frac=cfg["val_frac"], seed=0)
+    tr, va = np.asarray(tr), np.asarray(va)
+    mean, std = x_cont[tr].mean(0), x_cont[tr].std(0, ddof=1)
+    x_cont = ((x_cont - mean) / std).astype(np.float32)
+    return (x_cat[tr], x_cont[tr], y[tr]), (x_cat[va], x_cont[va], y[va])
+
+
+def structured_data(train, val, target_type, cfg, seed):
+    from neuralnetworklibrary_tpu_torch.applications.structured import (
+        StructuredDataObj,
+        StructuredDataset,
+    )
+
+    labels = [{"unknown": 0, **{str(i): i + 1 for i in range(cfg["levels"])}}
+              for _ in range(cfg["n_cat"])]
+    return StructuredDataObj(StructuredDataset(*train, target_type),
+                             StructuredDataset(*val, target_type), labels,
+                             None, cfg["bs"], seed=seed)
+
+
+def phase_structured(seed, profile=False):
+    """Rossmann-shaped tabular regression, as bench.py's bench_structured,
+    and a 'cat' target at B 1024."""
+    import copy
+    import tempfile
+
+    from neuralnetworklibrary_tpu_torch.applications.structured import (
+        StructuredDataNet,
+    )
+    from neuralnetworklibrary_tpu_torch.core.metrics import (
+        cross_entropy_loss,
+        mse_loss,
+    )
+    from neuralnetworklibrary_tpu_torch.learner import Learner
+
+    cfg = ROSSMANN
+    rng = np.random.default_rng(seed + 51)
+    t0 = time.perf_counter()
+    train, val = rossmann_arrays(rng, cfg)
+    data = structured_data(train, val, "cont", cfg, seed)
+    setup_s = time.perf_counter() - t0
+    torch.manual_seed(seed)
+    model = StructuredDataNet.from_dataobj(data, cfg["head"])
+
+    # (a) a train-mode forward and backward, card against CPU: the output,
+    # the BatchNorm statistics it leaves and every gradient
+    cpu = copy.deepcopy(model).cpu()
+    b = data.train_dl.peek()
+    xs = [torch.from_numpy(x) for x in b.xs]
+    (oc, gc), (og, gg) = card_and_cpu_grads((cpu, model), xs,
+                                            torch.from_numpy(b.y), mse_loss)
+    out_err = rel_err(og, oc)
+    grad_err = max(rel_err(gg[n], g) for n, g in gc.items())
+    cbuf, gbuf = dict(cpu.named_buffers()), dict(model.named_buffers())
+    stats_err = max(rel_err(gbuf[n].cpu().float(), v.float())
+                    for n, v in cbuf.items() if "running" in n)
+    if not max(out_err, grad_err, stats_err) <= CARD_CPU_TOL:
+        fail(f"structured card vs CPU: output {out_err}, BatchNorm "
+             f"statistics {stats_err}, gradients {grad_err}")
+    model.zero_grad(set_to_none=True)
+    del cpu
+
+    # (b) one epoch, then evaluate: bench.py's rows/s including the eval
+    with tempfile.TemporaryDirectory() as tmp:
+        learner = Learner(tmp, data, model, "Adam2", seed=seed)
+        learner.init_optimizer(wd=cfg["wd"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rows, t0 = 0, time.perf_counter()
+        losses = []
+        for batch in data.train_dl:
+            losses.append(learner.train1minibatch(batch, cfg["lr"]))
+            rows += batch.n_valid
+        train_s = time.perf_counter() - t0
+        val_loss = learner.evaluate("val")[0]
+        rows += len(data.val_ds)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        losses = [float(v) for v in losses]
+        if profile:
+            profile_step(lambda: learner.train1minibatch(b, cfg["lr"]),
+                         "structured_profile")
+
+        # (c) a 'cat' target at B 1024: evaluate gives [loss, accuracy]
+        edges = np.quantile(train[2], np.linspace(0, 1, cfg["classes"] + 1))
+        to_cat = lambda part: (part[0], part[1], np.clip(np.searchsorted(
+            edges, part[2], side="right") - 1, 0, cfg["classes"] - 1))
+        cat_data = structured_data(to_cat(train), to_cat(val), "cat", cfg,
+                                   seed)
+        cat_data.category_labels.append(
+            {i: i for i in range(cfg["classes"])})
+        cat_model = StructuredDataNet.from_dataobj(
+            cat_data, cfg["head"][:-1] + [cfg["classes"]])
+        cat_learner = Learner(tmp, cat_data, cat_model, "Adam2", seed=seed)
+        cat_learner.init_optimizer(wd=cfg["wd"])
+        cat_losses = [float(cat_learner.train1minibatch(bb, cfg["lr"]))
+                      for bb, _ in zip(cat_data.train_dl,
+                                       range(cfg["cat_steps"]))]
+        cat_val = cat_learner.evaluate("val")
+        cat_ce = float(cross_entropy_loss(
+            torch.from_numpy(cat_learner.predict("val", False)[0]),
+            torch.from_numpy(cat_data.val_ds.y)))
+    # (bench.py's y is noise independent of the inputs: nothing to learn,
+    # so the losses are held finite, not falling)
+    if not (all(np.isfinite(losses)) and np.isfinite(val_loss)):
+        fail(f"structured losses not finite: {losses[:3]} .. "
+             f"{losses[-3:]}, val {val_loss}")
+    if not (len(cat_val) == 2 and 0.0 <= cat_val[1] <= 1.0
+            and abs(cat_val[0] - cat_ce) <= 1e-4 * cat_ce):
+        fail(f"structured 'cat' evaluate gave {cat_val} (CE of predict "
+             f"{cat_ce})")
+    emit({"phase": "structured",
+          "config": "bench.py bench_structured: StructuredDataNet head "
+                    "[1000, 500, 1], bs 1024, Adam2, wd 1e-4, lr 1e-3",
+          "rows": cfg["n"], "train_rows": len(data.train_ds),
+          "val_rows": len(data.val_ds),
+          "emb_sizes": f"{model.n_cat} x {model.emb_sizes[0]}",
+          "params": sum(p.numel() for p in model.parameters()),
+          "setup_s": setup_s,
+          "card_vs_cpu_output_err_over_max": out_err,
+          "card_vs_cpu_bn_stats_err_over_max": stats_err,
+          "card_vs_cpu_grad_err_over_max": grad_err,
+          "card_vs_cpu_tol": CARD_CPU_TOL,
+          "steps": len(losses), "first_losses": losses[:3],
+          "last_losses": losses[-3:], "val_loss": val_loss,
+          "train_s": train_s, "epoch_incl_eval_s": epoch_s,
+          "ms_per_step": train_s / len(losses) * 1e3,
+          "structured_rows_per_sec": rows / epoch_s,
+          "peak_memory_GB": peak / 1e9,
+          "cat": {"classes": cfg["classes"], "steps": cfg["cat_steps"],
+                  "losses": cat_losses, "evaluate_val": cat_val,
+                  "predict_ce": cat_ce}})
+
+
 def tc_smem_bytes(hd, tile, stages, n_stationary):
     """Shared memory of a tensor-core flash kernel (TcSmem in the source)."""
     halves = hd // 64
@@ -3347,6 +3981,9 @@ def main():
     t5_launches = phase_t5(args.seed, args.profile)
     phase_vision(args.seed, args.profile)
     vit_launches = phase_vit(args.seed, args.profile)
+    clf_launches = phase_classifier(args.seed, args.profile)
+    phase_collab(args.seed, args.profile)
+    phase_structured(args.seed, args.profile)
     k5_rows = phase_timing(args.seed)
     flash_t = phase_flash_timing(args.seed)
     lstm_t = phase_lstm_timing(args.seed)
@@ -3398,10 +4035,13 @@ def main():
                                  "vit": vit_t[name]})})
     for name, row in lstm_t.items():
         kind = name.split("_")[1]
+        by_path = {"lm": lstm_launches[name],
+                   "classifier": clf_launches[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": LSTM_SOURCE,
             "design": LSTM_DESIGN, "replaces": LSTM_REPLACES[name],
-            "launches": lstm_launches[name], "max_abs_err": lstm_err[name],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": lstm_err[name],
             "tol": "atol %g + rtol %g" % LSTM_TOL[kind], **row})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

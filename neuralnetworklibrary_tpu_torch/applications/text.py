@@ -1,7 +1,8 @@
-"""NLP: tokenization, LM data, the AWD-LSTM language model, losses.
+"""NLP: tokenization, LM and classification data, the AWD-LSTM language
+model and text classifier, losses.
 
 Counterpart of ``neuralnetworklibrary_tpu/applications/text.py`` (the
-reference's Applications/Text.py) for the language-model path:
+reference's Applications/Text.py):
 
 - the tokenizer (fastai pre-rules and the spacy-like rule tokenizer),
   ``tokenize``, ``tokenize_mp`` and ``numericalize``, copied;
@@ -14,7 +15,14 @@ reference's Applications/Text.py) for the language-model path:
   weight``, ``enc.lstm_{i}.w_ih`` (I, 4H), ``w_hh`` (H, 4H), ``b_ih``,
   ``b_hh``), so carrying weights over from the JAX package is a renaming;
 - ``RegSeqCrossEntropyLoss``, ``SeqCrossEntropyLoss``,
-  ``LanguageModelAccuracy`` and ``predict_from_string``.
+  ``LanguageModelAccuracy`` and ``predict_from_string``;
+- the classifier: ``TextClassificationDataLoader`` (length-sorted groups,
+  each batch padded to the smallest of a few bucket lengths that holds
+  its longest text) and ``TextClassificationDataObj``,
+  ``TextClassificationDecoder`` (attention pooling over time, then a
+  ``FullyConnectedNet``), ``TextClassificationNet`` (a stateless encoder:
+  every call starts from zero state), ``TextClassificationAccuracy``;
+- ``load_torch_awd_lstm``, the wt103 converter.
 
 The recurrence of ``WeightDropLSTM`` runs through ``ops.lstm_scan`` (the
 CUDA kernels K6 and K7) on CUDA tensors, in training and in evaluation,
@@ -27,10 +35,10 @@ at zero, where the JAX Learner's ``init`` leaves one window's state.
 Dropout runs only in calls with ``train=True``.  Its masks come from a
 generator on the input's device, seeded per forward by an int drawn from
 the ``generator`` given (the Learner's seeded CPU generator), else from
-torch's default one; so they are statistically, not bitwise, the JAX
-model's.  Not ported yet: the classifier (``TextClassificationNet``, its
-decoder and data loader), ``FusedRegSeqCrossEntropyLoss`` and
-``load_torch_awd_lstm`` (ROADMAP Queue 1).
+torch's default one (the classifier head's ``F.dropout`` draws from
+torch's default one); so they are statistically, not bitwise, the JAX
+model's.  Not ported yet: ``FusedRegSeqCrossEntropyLoss`` (ROADMAP
+Queue 1).
 """
 
 from __future__ import annotations
@@ -53,8 +61,15 @@ from neuralnetworklibrary_tpu_torch.core.metrics import (
 )
 from neuralnetworklibrary_tpu_torch.data.loader import Batch
 from neuralnetworklibrary_tpu_torch.data.split import SplitTrainVal
+from neuralnetworklibrary_tpu_torch.nn.layers import (
+    FullyConnectedNet,
+    device_generator,
+    keep_mask,
+    linear,
+)
 from neuralnetworklibrary_tpu_torch.nn.transformer import resolve_device
 from neuralnetworklibrary_tpu_torch.ops.lstm_scan import lstm_scan
+from neuralnetworklibrary_tpu_torch.utils.torch_convert import _np
 
 _TODO = "is not ported yet (ROADMAP Queue 1)"
 
@@ -355,15 +370,127 @@ class LanguageModelDataObj:
         return cls(train_ds, val_ds, test_ds, bs, bptt, seed)
 
 
+def _bucket_len(n, buckets):
+    """The smallest bucket length >= n, else the largest bucket."""
+    for b in buckets:
+        if n <= b:
+            return b
+    return buckets[-1]
+
+
+class TextClassificationDataLoader:
+    """Length-bucketed classification loader (TextLengthSampler +
+    TextLengthCollater, Text.py:334-389), as the JAX loader:
+
+    texts sort by length, longest first; consecutive groups of bs*bpg
+    texts are the units of shuffling (with ``random``, every group but the
+    first, the longest texts, changes places, and each group's texts are
+    shuffled, from ``np.random.default_rng((seed, epoch))``).  A batch
+    pads its texts at the end with ``pad_token`` to the smallest bucket
+    length that holds its longest text (texts beyond the last bucket are
+    cut to it), and a short batch repeats its last index, masked, to keep
+    ``bs`` rows.
+    """
+
+    def __init__(self, ds, bs, pad_token, bpg=10, random=False, seed=0,
+                 buckets=(64, 128, 256, 512, 1024, 2048, 4096)):
+        self.ds, self.bs, self.pad_token = ds, bs, pad_token
+        self.random, self.seed = random, seed
+        self.buckets = tuple(buckets)
+        self.epoch = 0
+        order = sorted(range(len(ds)), key=lambda i: len(ds.texts[i]),
+                       reverse=True)
+        self.order = order
+        group_sz = bs * bpg
+        self.groups = [order[i:i + group_sz]
+                       for i in range(0, len(order), group_sz)]
+
+    def __len__(self):
+        return sum(-(-len(g) // self.bs) for g in self.groups)
+
+    def _make_batch(self, idxs) -> Batch:
+        n_valid = len(idxs)
+        idxs = list(idxs) + [idxs[-1]] * (self.bs - n_valid)
+        texts = [self.ds.texts[i] for i in idxs]
+        labels = np.asarray([self.ds.labels[i] for i in idxs], np.int64)
+        maxlen = max(1, max(len(t) for t in texts))
+        L = _bucket_len(maxlen, self.buckets)
+        x = np.full((self.bs, L), self.pad_token, np.int32)
+        for r, t in enumerate(texts):
+            t = t[:L]
+            x[r, :len(t)] = t
+        mask = np.zeros(self.bs, np.float32)
+        mask[:n_valid] = 1.0
+        return Batch(xs=(x,), y=labels, mask=mask, n_valid=n_valid)
+
+    def peek(self) -> Batch:
+        return self._make_batch(self.groups[0][:self.bs])
+
+    def __iter__(self):
+        rng = np.random.default_rng((self.seed, self.epoch))
+        groups = [list(g) for g in self.groups]
+        if self.random:
+            rest = groups[1:]
+            rng.shuffle(rest)
+            groups = [groups[0]] + rest
+            for g in groups:
+                rng.shuffle(g)
+        for g in groups:
+            for i in range(0, len(g), self.bs):
+                yield self._make_batch(g[i:i + self.bs])
+        self.epoch += 1
+
+
+class TextClassificationDataObj:
+    """Classification datasets + bucketed loaders (Text.py:391-438); the
+    train loader shuffles, the others keep the sorted order."""
+
+    def __init__(self, train_ds, val_ds, test_ds, bs, bpg=10, seed=0):
+        self.bs, self.stoi = bs, train_ds.stoi
+        self.target_type = "text_classify"
+        self.train_ds, self.val_ds, self.test_ds = train_ds, val_ds, test_ds
+        pad = self.stoi["_pad_"]
+        self.train_dl = TextClassificationDataLoader(train_ds, bs, pad, bpg,
+                                                     True, seed)
+        self.val_dl = TextClassificationDataLoader(val_ds, bs, pad, bpg,
+                                                   False)
+        if test_ds:
+            self.test_dl = TextClassificationDataLoader(test_ds, bs, pad,
+                                                        bpg, False)
+
+    @classmethod
+    def from_csv(cls, bs, csv_train, csv_val=None, csv_test=None,
+                 text_col="text", label_col="label", reverse=False,
+                 stoi=None, seed=0):
+        train_ds = TextDataset.from_csv(csv_train, text_col, label_col, stoi,
+                                        reverse)
+        stoi = train_ds.stoi
+        if csv_val:
+            val_ds = TextDataset.from_csv(csv_val, text_col, label_col, stoi,
+                                          reverse)
+        else:
+            train_ds, val_ds = train_ds.split_train_val(seed=seed)
+        test_ds = (TextDataset.from_csv(csv_test, text_col, label_col, stoi,
+                                        reverse) if csv_test else None)
+        return cls(train_ds, val_ds, test_ds, bs, seed=seed)
+
+    @classmethod
+    def from_folders(cls, bs, labels, train, val=None, test=None,
+                     reverse=False, stoi=None, seed=0):
+        train_ds = TextDataset.from_text_files(train, labels, stoi, reverse)
+        stoi = train_ds.stoi
+        if val:
+            val_ds = TextDataset.from_text_files(val, labels, stoi, reverse)
+        else:
+            train_ds, val_ds = train_ds.split_train_val(seed=seed)
+        test_ds = (TextDataset.from_text_files(test, labels, stoi, reverse)
+                   if test else None)
+        return cls(train_ds, val_ds, test_ds, bs, seed=seed)
+
+
 # ---------------------------------------------------------------------------
 # (3) Models (Text.py:441-651)
 # ---------------------------------------------------------------------------
-
-
-def _keep(shape, rate, like, generator):
-    """A 0/1 mask of ``shape`` in like's dtype and device, 1 with
-    probability 1 - rate, drawn from ``generator``."""
-    return like.new_empty(shape).bernoulli_(1.0 - rate, generator=generator)
 
 
 def locked_dropout(x, rate, train, generator=None):
@@ -371,16 +498,8 @@ def locked_dropout(x, rate, train, generator=None):
     (LockedDropout, Text.py:443-452)."""
     if not train or rate == 0.0:
         return x
-    keep = _keep((x.shape[0], 1, x.shape[2]), rate, x, generator)
+    keep = keep_mask((x.shape[0], 1, x.shape[2]), rate, x, generator)
     return x * keep / (1.0 - rate)
-
-
-def _device_generator(generator, device) -> torch.Generator:
-    """A generator on ``device`` seeded by one int drawn from
-    ``generator`` (a CPU generator, or None for torch's default): a CPU
-    generator cannot draw masks for CUDA tensors."""
-    seed = int(torch.randint(0, 2 ** 62, (), generator=generator))
-    return torch.Generator(device=device).manual_seed(seed)
 
 
 class WeightDropLSTM(nn.Module):
@@ -422,7 +541,7 @@ class WeightDropLSTM(nn.Module):
         """x (B, T, I), h0/c0 (B, H) -> (ys (B, T, H), hT, cT)."""
         w_hh = self.w_hh
         if train and self.weight_drop > 0.0:
-            w_hh = w_hh * _keep(w_hh.shape, self.weight_drop, w_hh,
+            w_hh = w_hh * keep_mask(w_hh.shape, self.weight_drop, w_hh,
                                 generator) / (1.0 - self.weight_drop)
         xp = x @ self.w_ih + self.b_ih + self.b_hh      # (B, T, 4H)
         use_kernel = (x.is_cuda if self.lstm_kernel is None
@@ -456,7 +575,7 @@ class EmbeddingDropout(nn.Module):
     def forward(self, x, train: bool = False, generator=None):
         weight = self.weight
         if train and self.drop1 > 0.0:
-            weight = weight * _keep((weight.shape[0], 1), self.drop1,
+            weight = weight * keep_mask((weight.shape[0], 1), self.drop1,
                                     weight, generator) / (1.0 - self.drop1)
         out = weight[x]
         out = locked_dropout(out, self.drop2, train, generator)
@@ -549,6 +668,20 @@ class LSTM_Encoder(nn.Module):
         return x
 
 
+class _LSTMKernelSwitch:
+    """``lstm_kernel`` of a net over ``self.enc`` (an :class:`LSTM_Encoder`):
+    read from its first layer, set on every layer."""
+
+    @property
+    def lstm_kernel(self) -> Optional[bool]:
+        return self.enc.lstm_0.lstm_kernel
+
+    @lstm_kernel.setter
+    def lstm_kernel(self, value: Optional[bool]):
+        for layer in self.enc.lstms():
+            layer.lstm_kernel = value
+
+
 class LanguageModelDecoder(nn.Module):
     """Tied-weight linear decoder (Text.py:553-573): logits =
     drop(enc_out) @ weight^T; the tied weight is passed at call time."""
@@ -563,7 +696,7 @@ class LanguageModelDecoder(nn.Module):
                         tied_weight)
 
 
-class LanguageModelNet(nn.Module):
+class LanguageModelNet(_LSTMKernelSwitch, nn.Module):
     """LSTM encoder + tied linear decoder (Text.py:611-651).
 
     Returns (logits (B, T, V), enc_out); the encoder output feeds the AR/TAR
@@ -590,6 +723,8 @@ class LanguageModelNet(nn.Module):
                 f"LanguageModelNet(fused_ce=True): ops/chunked_ce.py {_TODO}")
         dev = resolve_device(device)
         self.vocab_size, self.pad_token = vocab_size, pad_token
+        self.enc_drops = tuple(enc_drops)
+        self.emb_dim, self.hidden_size = emb_dim, hidden_size
         self.num_layers = num_layers
         drops = tuple(d * drop_scaling for d in enc_drops)
         self.enc = LSTM_Encoder(vocab_size, emb_dim, hidden_size, num_layers,
@@ -602,22 +737,13 @@ class LanguageModelNet(nn.Module):
         lstms = tuple(f"enc/lstm_{i}" for i in range(self.num_layers))
         return (lstms, ("enc/word_embed",))
 
-    @property
-    def lstm_kernel(self) -> Optional[bool]:
-        return self.enc.lstm_0.lstm_kernel
-
-    @lstm_kernel.setter
-    def lstm_kernel(self, value: Optional[bool]):
-        for layer in self.enc.lstms():
-            layer.lstm_kernel = value
-
     def reset_carry(self, batch_size: Optional[int] = None):
         self.enc.reset_carry(batch_size)
 
     def forward(self, x, train: bool = False, generator=None):
         """x (B, T) token ids.  ``train=True`` applies dropout, with masks
         from a device generator seeded by one draw from ``generator``."""
-        gen = _device_generator(generator, x.device) if train else None
+        gen = device_generator(generator, x.device) if train else None
         enc_out, tied = self.enc(x, train, gen, return_embed_weight=True)
         return self.dec(enc_out, tied, train, gen), enc_out
 
@@ -627,6 +753,110 @@ class LanguageModelNet(nn.Module):
         return cls(vocab_size=len(data.stoi), pad_token=data.stoi["_pad_"],
                    enc_drops=tuple(enc_drops), dec_drop=dec_drop,
                    drop_scaling=drop_scaling, **kw)
+
+
+class TextClassificationDecoder(nn.Module):
+    """Attention-pooled classifier head (Text.py:575-609): scores
+    ``attn2(relu(attn1(enc_out)))``, a softmax over time, pads masked out
+    and the weights renormalised (by max(sum, 1e-12)), the weighted sum of
+    ``enc_out`` into a ``FullyConnectedNet`` [emb_dim, *fc_layer_sizes,
+    num_classes].  The softmax and the pooling run in float32 under
+    autocast."""
+
+    def __init__(self, num_classes: int, attn_size: int = 100,
+                 fc_layer_sizes: tuple = (100,),
+                 fc_drops: tuple = (0.25, 0.25), emb_dim: int = 400,
+                 pad_token: int = 1, device=None):
+        super().__init__()
+        self.pad_token = pad_token
+        self.attn1 = linear(emb_dim, attn_size, device=device)
+        self.attn2 = linear(attn_size, 1, device=device)
+        sizes = (emb_dim,) + tuple(fc_layer_sizes) + (num_classes,)
+        self.fc = FullyConnectedNet(sizes, fc_drops, device=device)
+
+    def forward(self, enc_in, enc_out, train: bool = False,
+                return_attn: bool = False):
+        a = self.attn2(F.relu(self.attn1(enc_out)))[..., 0]    # (B, T)
+        with torch.autocast(enc_out.device.type, enabled=False):
+            a = torch.softmax(a.float(), dim=1)
+            a = a * (enc_in != self.pad_token).float()
+            a = a / torch.clamp(a.sum(1, keepdim=True), min=1e-12)
+            combined = (a[..., None] * enc_out.float()).sum(1)  # (B, E)
+        out = self.fc(combined, train)
+        if return_attn:
+            return out, a
+        return out
+
+
+class TextClassificationNet(_LSTMKernelSwitch, nn.Module):
+    """AWD-LSTM encoder + attention classifier head (Text.py:704-751).
+
+    The encoder is stateless: every call starts from zero (h, c), whatever
+    the batch's length, so nothing carries over between batches or buckets.
+    Returns (logits (B, num_classes), enc_out), or with ``return_attn``
+    (logits, enc_out, attention (B, T)).  Layer groups for the Learner:
+    [lstms, word_embed, dec (= head)].  ``lstm_kernel`` as in
+    :class:`LanguageModelNet`; ``device`` defaults to cuda.
+    """
+
+    head_prefixes = ("dec",)
+
+    def __init__(self, vocab_size: int, num_classes: int, pad_token: int = 1,
+                 attn_size: int = 100,
+                 enc_drops: tuple = (0.05, 0.25, 0.2, 0.15),
+                 drop_scaling: float = 0.7, fc_layer_sizes: tuple = (100,),
+                 fc_drops: tuple = (0.25, 0.25), emb_dim: int = 400,
+                 hidden_size: int = 1150, num_layers: int = 3,
+                 lstm_kernel: Optional[bool] = None, device=None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.vocab_size, self.num_classes = vocab_size, num_classes
+        self.pad_token, self.num_layers = pad_token, num_layers
+        drops = tuple(d * drop_scaling for d in enc_drops)
+        self.enc = LSTM_Encoder(vocab_size, emb_dim, hidden_size, num_layers,
+                                pad_token, drops, stateful=False,
+                                lstm_kernel=lstm_kernel, device=dev)
+        self.dec = TextClassificationDecoder(
+            num_classes, attn_size, tuple(fc_layer_sizes), tuple(fc_drops),
+            emb_dim, pad_token, device=dev)
+
+    @property
+    def layer_group_prefixes(self):
+        lstms = tuple(f"enc/lstm_{i}" for i in range(self.num_layers))
+        return (lstms, ("enc/word_embed",), ("dec",))
+
+    def forward(self, x, train: bool = False, generator=None,
+                return_attn: bool = False):
+        """x (B, T) token ids, padded with ``pad_token`` at the end."""
+        gen = device_generator(generator, x.device) if train else None
+        enc_out = self.enc(x, train, gen)
+        out = self.dec(x, enc_out, train, return_attn)
+        if return_attn:
+            return out[0], enc_out, out[1]
+        return out, enc_out
+
+    @classmethod
+    def from_language_model(cls, learner, num_classes, **kw):
+        """A classifier with the LM Learner's encoder widths, drops and
+        vocabulary, and ``transfer(model)``, which copies the LM's encoder
+        weights as they are now (``enc.*``) into ``model`` in place and
+        returns it (Text.py:726-732)."""
+        lm = learner.model
+        kw.setdefault("device", next(lm.parameters()).device)
+        model = cls(vocab_size=lm.vocab_size, pad_token=lm.pad_token,
+                    num_classes=num_classes, enc_drops=lm.enc_drops,
+                    emb_dim=lm.emb_dim, hidden_size=lm.hidden_size,
+                    num_layers=lm.num_layers, **kw)
+        lm_enc = {n: p.detach().clone() for n, p in
+                  lm.enc.named_parameters()}
+
+        def transfer(clf):
+            with torch.no_grad():
+                for n, p in clf.enc.named_parameters():
+                    p.copy_(lm_enc[n])
+            return clf
+
+        return model, transfer
 
 
 # ---------------------------------------------------------------------------
@@ -673,8 +903,16 @@ class LanguageModelAccuracy:
         return masked_mean(correct, mask)
 
 
+class TextClassificationAccuracy:
+    """Class accuracy (Text.py:801-808)."""
+
+    def __call__(self, preds, target, mask=None):
+        preds = preds[0] if isinstance(preds, tuple) else preds
+        return masked_mean((preds.argmax(dim=-1) == target).float(), mask)
+
+
 # ---------------------------------------------------------------------------
-# (5) Generation
+# (5) Generation + pretrained weight conversion
 # ---------------------------------------------------------------------------
 
 
@@ -720,3 +958,36 @@ def predict_from_string(learner, s: str, n: int, k: int = 5, seed: int = 0):
         model.enc.set_carry(saved)
         model.train(was_training)
     return " ".join(itos[t] for t in out)
+
+
+def load_torch_awd_lstm(model, lstm_state_dicts, emb_weight, itos,
+                        stoi_wt103):
+    """Install wt103-pretrained torch AWD-LSTM weights into ``model.enc``
+    (a :class:`LanguageModelNet` or :class:`TextClassificationNet`) in
+    place, and return the model (Text.py:678-702).
+
+    lstm_state_dicts: {'<i>.lstm.weight_ih_l0': (4H, I), '<i>.lstm.
+    weight_hh_l0_raw', '<i>.lstm.bias_ih_l0', '<i>.lstm.bias_hh_l0'} of
+    torch tensors or arrays; emb_weight (V_wt103, emb) whose rows are
+    remapped through ``itos`` (our id -> token) and ``stoi_wt103``, with
+    the mean row for tokens wt103 lacks."""
+    enc = model.enc
+    with torch.no_grad():
+        for i, layer in enumerate(enc.lstms()):
+            pre = f"{i}.lstm."
+            for name, key, t in (("w_ih", "weight_ih_l0", True),
+                                 ("w_hh", "weight_hh_l0_raw", True),
+                                 ("b_ih", "bias_ih_l0", False),
+                                 ("b_hh", "bias_hh_l0", False)):
+                arr = _np(lstm_state_dicts[pre + key])
+                getattr(layer, name).copy_(torch.from_numpy(
+                    np.ascontiguousarray(arr.T if t else arr,
+                                         dtype=np.float32)))
+        emb_weight = _np(emb_weight)
+        w = np.tile(emb_weight.mean(axis=0), (len(itos), 1)).astype(
+            np.float32)
+        for i, tok in itos.items():
+            if tok in stoi_wt103:
+                w[i] = emb_weight[stoi_wt103[tok]]
+        enc.word_embed.weight.copy_(torch.from_numpy(w))
+    return model

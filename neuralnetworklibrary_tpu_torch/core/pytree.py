@@ -1,9 +1,9 @@
-"""Parameter helpers the Learner and optimizer use.
+"""Parameter helpers the Learner and optimizer use, and ``combine_preds``.
 
 Counterpart of the parts of ``neuralnetworklibrary_tpu/core/pytree.py``
-that training needs.  JAX's flatten/unflatten of a params pytree become
-``nn.Module.named_parameters()``: a parameter's path is its dotted name
-split on ".", e.g. ``("block_0", "attn", "qkv", "weight")``.
+that training and ensembles need.  JAX's flatten/unflatten of a params
+pytree become ``nn.Module.named_parameters()``: a parameter's path is its
+dotted name split on ".", e.g. ``("block_0", "attn", "qkv", "weight")``.
 """
 
 from __future__ import annotations
@@ -62,3 +62,21 @@ def outer_mult(lst, vec):
 def linear_space(start, stop, N):
     """N evenly spaced values including both ends (Core.py:109-114)."""
     return list(np.linspace(start, stop, N))
+
+
+def combine_preds(preds, target_type: str, weights=None):
+    """Weighted average of prediction sets (numpy arrays, e.g. from
+    ``Learner.predict``), uniform by default (combine_preds, Core.py:277):
+    for 'cont' the average; for 'cat', 'single_label' and 'text_classify'
+    (average, its argmax); for 'multi_label' (average, its 0/1 rounding)."""
+    n = len(preds)
+    if weights is None:
+        weights = [1.0 / n] * n
+    combined = sum(w * p for w, p in zip(weights, preds))
+    if target_type == "cont":
+        return combined
+    if target_type in ("cat", "single_label", "text_classify"):
+        return combined, combined.argmax(axis=1)
+    if target_type == "multi_label":
+        return combined, np.round(combined).astype(int)
+    raise ValueError(f"unknown target_type {target_type!r}")

@@ -26,8 +26,11 @@ General/Learner.py).  What carries over unchanged:
 - ``bn_freeze`` / ``bn_unfreeze`` and ``set_trainable``; a model whose
   forward takes ``bn_frozen`` is called with it, so frozen BatchNorms stay
   on their running statistics in training and leave them unchanged;
-- ``evaluate('val')`` gives the accuracy of 'single_label' and
-  'multi_label' targets, and ``predict`` runs over a whole loader.
+- ``evaluate('val')`` gives the accuracy of 'cat', 'single_label' and
+  'multi_label' targets, batch metrics, and end metrics (``'auc'`` or an
+  object with ``is_end_metric``) over the whole set, each batch reduced on
+  the host by the metric's ``prepare``; ``predict`` runs over a whole
+  loader.
 
 What differs: PyTorch runs eagerly, so one train step is forward,
 ``backward`` and :meth:`Optimizer.apply` in place, with no jit.  Frozen
@@ -40,8 +43,8 @@ package's mesh sharding and device prefetch.  uint8 arrays (images)
 cross as uint8; other integer arrays become int64.
 
 Not ported yet, each raising ``NotImplementedError``: mesh / ZeRO / FSDP,
-``grad_accum``, ``mixup``, ``distill``, fused epochs, SWA, end metrics and
-``find_lr`` plotting (ROADMAP Queue 1).
+``grad_accum``, ``mixup``, ``distill``, fused epochs, SWA and ``find_lr``
+plotting (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -368,40 +371,54 @@ class Learner:
     @torch.no_grad()
     def evaluate(self, dataset_type: str, metrics: Sequence = ()):
         """Average loss over 'train' or 'val'; for 'val' also the accuracy
-        of 'single_label' and 'multi_label' targets and the given batch
-        metrics ``m(y_pred, y, mask)``, in the reference's shapes: 'train'
-        -> float, 'val' -> [loss(, accuracy)(, metric values)]
-        (Learner.py:395)."""
-        if any(isinstance(m, str) or getattr(m, "is_end_metric", False)
-               for m in metrics):
-            raise NotImplementedError(f"end metrics {_TODO}")
+        of 'cat', 'single_label' and 'multi_label' targets and the values
+        of ``metrics``, in the reference's shapes: 'train' -> float, 'val'
+        -> [loss(, accuracy)(, metric values)] (Learner.py:395).
+
+        A batch metric is ``m(y_pred, y, mask)``, averaged over the valid
+        rows.  An end metric (a name in ``core.metrics.end_metrics``, or an
+        object with ``is_end_metric``) is called once on the whole set's
+        valid rows, which each batch hands to the host through the
+        metric's ``prepare(y_pred, y)`` where it has one."""
         dl = self.data.train_dl if dataset_type == "train" else \
             self.data.val_dl
+        batch_ms = [m for m in metrics if not M.is_end_metric(m)]
+        end_fns = [M.end_metrics[m]() if isinstance(m, str) else m
+                   for m in metrics if M.is_end_metric(m)]
+        end_acc = [([], []) for _ in end_fns]
         dev = self.device
         total = torch.zeros((), dtype=torch.float64, device=dev)
         count = torch.zeros((), dtype=torch.float64, device=dev)
-        mvals = torch.zeros(len(metrics), dtype=torch.float64, device=dev)
+        mvals = torch.zeros(len(batch_ms), dtype=torch.float64, device=dev)
         correct = torch.zeros((), dtype=torch.float64, device=dev)
         self.model.eval()
-        for _, (xs, y, mask) in self._device_batches(dl):
+        for batch, (xs, y, mask) in self._device_batches(dl):
             y_pred = self._eval_forward(xs)
             n = mask.sum()
             total += self._apply_loss(y_pred, y, mask) * n
             count += n
-            for i, m in enumerate(metrics):
+            for i, m in enumerate(batch_ms):
                 mvals[i] += m(y_pred, y, mask) * n
             logits = y_pred[0] if isinstance(y_pred, tuple) else y_pred
-            if self.target_type == "single_label":
+            if self.target_type in ("cat", "single_label"):
                 correct += ((logits.argmax(1) == y) * mask).sum()
             elif self.target_type == "multi_label":
                 hit = torch.round(torch.sigmoid(logits)) == y.to(logits.dtype)
                 correct += (hit * mask[:, None]).sum()
+            if end_fns:
+                yp = logits[:batch.n_valid].cpu().numpy()
+                yy = y[:batch.n_valid].cpu().numpy()
+                for fn, (ps, ls) in zip(end_fns, end_acc):
+                    prep = getattr(fn, "prepare", None)
+                    p, lab = prep(yp, yy) if prep is not None else (yp, yy)
+                    ps.append(p)
+                    ls.append(lab)
         count = float(count)
         avg_loss = float(total) / count
         if dataset_type == "train":
             return avg_loss
         results: list = [avg_loss]
-        if self.target_type == "single_label":
+        if self.target_type in ("cat", "single_label"):
             results.append(float(correct) / count)
         elif self.target_type == "multi_label":
             cats = getattr(self.data, "categories", None)
@@ -409,7 +426,12 @@ class Learner:
                  else np.asarray(self.data.val_dl.peek().y).shape[-1])
             results.append(float(correct) / (count * C))
         if len(metrics):
-            results.append(mvals.cpu().numpy() / count)
+            batch_vals = iter(mvals.cpu().numpy() / count)
+            end_vals = iter(fn(np.concatenate(ps), np.concatenate(ls))
+                            for fn, (ps, ls) in zip(end_fns, end_acc))
+            results.append(np.asarray([
+                next(end_vals) if M.is_end_metric(m) else next(batch_vals)
+                for m in metrics]))
         return results
 
     def _eval_forward(self, xs):
@@ -435,9 +457,10 @@ class Learner:
     def predict(self, dl, correct_probs: bool = True):
         """Predictions over a whole loader, or 'train' / 'val' / 'test'
         (Learner.py:286-393): a (N, ...) array for 'cont' targets, else
-        [probs, labels] (softmax and argmax for 'single_label', sigmoid
-        and rounding for 'multi_label'; ``correct_probs=False`` gives the
-        logits in place of the probabilities)."""
+        [probs, labels] (softmax and argmax for 'cat', 'single_label' and
+        'text_classify', sigmoid and rounding for 'multi_label';
+        ``correct_probs=False`` gives the logits in place of the
+        probabilities)."""
         if isinstance(dl, str):
             dl = {"train": self.data.train_dl, "val": self.data.val_dl,
                   "test": getattr(self.data, "test_dl", None)}[dl]
@@ -454,9 +477,13 @@ class Learner:
         if self.target_type == "multi_label":
             probs = torch.sigmoid(y_pred)
             labels = torch.round(probs).long()
-        else:
+        elif self.target_type in ("cat", "single_label", "text_classify"):
             probs = torch.softmax(y_pred, dim=1)
             labels = probs.argmax(1)
+        else:
+            raise ValueError(f"predict takes 'cont', 'cat', 'single_label', "
+                             f"'text_classify' or 'multi_label' targets, "
+                             f"not {self.target_type!r}")
         probs = probs if correct_probs else y_pred
         return [probs.cpu().numpy(), labels.cpu().numpy()]
 
@@ -509,7 +536,7 @@ class Learner:
             self.save(save_name)
         values, run_times = [], []
         col_names = ["train_loss", "val_loss"]
-        if self.target_type in ("single_label", "multi_label"):
+        if self.target_type in ("cat", "single_label", "multi_label"):
             col_names.append("accuracy")
         if len(metrics):
             col_names.append("metrics")

@@ -1,10 +1,10 @@
-"""Building-block layers for the image models.
+"""Building-block layers.
 
 Counterpart of ``neuralnetworklibrary_tpu/nn/layers.py`` (General/Layers.py
-of the reference) for the parts the vision slice uses.  Module attribute
-names are the flax names (``lin``, ``conv``, ``bn``, ``pre_bn``,
-``lins_{i}``, ``final_lin``), so ``utils.jax_params.load_jax_params``
-carries weights across by renaming.
+of the reference).  Module attribute names are the flax names (``lin``,
+``conv``, ``bn``, ``pre_bn``, ``lins_{i}``, ``final_lin``, ``emb``,
+``embedding``), so ``utils.jax_params.load_jax_params`` carries weights
+across by renaming.
 
 Conventions, as in the JAX package:
 
@@ -20,6 +20,10 @@ Conventions, as in the JAX package:
 - linear and conv kernels draw flax's ``he_normal`` (a normal truncated at
   two standard deviations, its std corrected for the truncation) with zero
   bias; the same distribution as the JAX package, not the same bits.
+- random masks of the models that take a ``generator`` (the Learner's
+  seeded CPU generator) come from a generator on the input's device seeded
+  by one draw from it (:func:`device_generator`); ``F.dropout`` draws
+  from torch's default generator.
 """
 
 from __future__ import annotations
@@ -85,6 +89,20 @@ def conv2d(n_in: int, n_out: int, kernel: int, stride: int = 1,
     if bias:
         nn.init.zeros_(conv.bias)
     return conv
+
+
+def keep_mask(shape, rate, like, generator=None) -> torch.Tensor:
+    """A 0/1 mask of ``shape`` in like's dtype and device, 1 with
+    probability 1 - rate, drawn from ``generator``."""
+    return like.new_empty(shape).bernoulli_(1.0 - rate, generator=generator)
+
+
+def device_generator(generator, device) -> torch.Generator:
+    """A generator on ``device`` seeded by one int drawn from
+    ``generator`` (a CPU generator, or None for torch's default): a CPU
+    generator cannot draw masks for CUDA tensors."""
+    seed = int(torch.randint(0, 2 ** 62, (), generator=generator))
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def use_running_average(train: bool, bn_train: Optional[bool]) -> bool:
@@ -187,6 +205,53 @@ class ConvBlock(nn.Module):
         if self.bn is not None:
             x = self.bn(x, use_running_average(train, bn_train))
         return x
+
+
+class Embedding(nn.Module):
+    """Embedding table (``get_embedding``, Layers.py:56-61), initialised
+    by :func:`trunc_normal_init` at ``std``.
+
+    ``max_norm`` rescales each gathered row to norm at most ``max_norm``
+    as a function of the table, as the JAX module does, so the gradient
+    flows through the norm.  (torch's ``nn.Embedding(max_norm=)``
+    renormalises the table's rows in place instead, with another
+    gradient.)"""
+
+    def __init__(self, num_embeddings: int, features: int, std: float = 0.01,
+                 max_norm: Optional[float] = None, device=None):
+        super().__init__()
+        self.max_norm = max_norm
+        self.embedding = nn.Parameter(trunc_normal_init(std)(
+            torch.empty(num_embeddings, features, device=device)))
+
+    def forward(self, idx):
+        rows = self.embedding[idx]
+        if self.max_norm is not None:
+            norms = torch.linalg.vector_norm(rows, dim=-1, keepdim=True)
+            rows = rows * torch.clamp(
+                self.max_norm / torch.clamp(norms, min=1e-12), max=1.0)
+        return rows
+
+
+class EmbeddingDrop(nn.Module):
+    """:class:`Embedding` with per-sample whole-vector dropout (class
+    EmbeddingDrop, Layers.py:63-76): in training a (bs,) mask, 1 with
+    probability 1 - drop, scales each sample's whole vector by 1/(1 -
+    drop)."""
+
+    def __init__(self, num_embeddings: int, features: int, drop: float = 0.0,
+                 std: float = 0.01, max_norm: Optional[float] = None,
+                 device=None):
+        super().__init__()
+        self.drop = drop
+        self.emb = Embedding(num_embeddings, features, std, max_norm, device)
+
+    def forward(self, idx, train: bool = False, generator=None):
+        emb = self.emb(idx)
+        if self.drop and train:
+            keep = keep_mask((emb.shape[0], 1), self.drop, emb, generator)
+            emb = emb * keep / (1.0 - self.drop)
+        return emb
 
 
 def adaptive_concat_pool2d(x: torch.Tensor) -> torch.Tensor:

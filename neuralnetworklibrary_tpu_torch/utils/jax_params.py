@@ -4,9 +4,13 @@ The port keeps the flax names as module attribute names, so the mapping is
 a renaming: a flax ``Dense`` ``kernel`` (in, out) becomes ``nn.Linear``
 ``weight`` (out, in), a flax ``Conv`` ``kernel`` (kh, kw, in/groups, out)
 becomes ``nn.Conv2d`` ``weight`` (out, in/groups, kh, kw), a norm's
-``scale`` becomes ``weight``, and every other leaf (biases, embeddings,
-sinks, ViT's ``cls``/``pos_embed``, the LSTM's ``w_ih``/``w_hh``/
-``b_ih``/``b_hh``, already in the port's layout) keeps its name.  A flax
+``scale`` becomes ``weight``, and every other leaf (biases, embeddings
+such as ``Embedding``'s ``embedding``, sinks, ViT's ``cls``/``pos_embed``,
+the LSTM's ``w_ih``/``w_hh``/``b_ih``/``b_hh``, already in the port's
+layout) keeps its name.  So the classifier's tree (``dec/attn1``,
+``dec/attn2``, ``dec/fc/...``), collab's (``user_emb/embedding``, ...),
+structured's (``embeddings_{i}/emb/embedding``, ``cont_bn``, ``head/...``)
+and an ensemble's (``models_{i}/...``) load as they are.  A flax
 ``carry`` collection (the AWD-LSTM encoder's (h, c)) goes into the
 module's buffers of the same names, and a ``batch_stats`` collection
 (``mean``, ``var`` of each BatchNorm) into its ``running_mean`` and
