@@ -132,6 +132,25 @@ name and power limit from nvidia-smi):
           card against CPU (output, BatchNorm statistics, gradients); one
           epoch, then evaluate, as structured_rows_per_sec; a 'cat' target
           (5 classes) at B 1024 whose evaluate gives [loss, accuracy].
+- detection: bench.py's bench_detection through the port's
+          ObjectDetectionLearner, random weights, synthetic images (no
+          cv2): (a) retinanet18 at feature 32, B 2, 128 x 192, output convs
+          random, a train-mode forward and backward through the SSD loss
+          on the card against the CPU (anchors equal; float32 reg, clas
+          and loss, float64 also the FPN's and subnets' gradients, within
+          1e-3 of max), and decode + NMS on the card against the CPU on
+          the same reg / clas (classes, scores and counts equal); (b)
+          retinanet50 at feature 256, 20 classes, 64 images of 375 x 500
+          (1-5 bright boxes), val 0.25, ARS (512, 1024), granularity 128
+          (a 512 x 768 canvas, 73,656 anchors), bf16, B 8, Adam2, wd 1e-4,
+          clip 1.0: 10 steps on one batch, evaluate('val') with the SSD
+          metrics, predict('val', thresh 0.05, max_boxes 20) with NMS on
+          the device (img/s, and the kernel launches of one batch's
+          forward, decode + NMS and NMS alone, with the NMS sweeps), and
+          at thresh 0, where every top-k candidate enters the NMS;
+          compute_mAP and coco_pascal_eval on the thresh-0 predictions
+          (its C++ helper built with g++ here); then the canvas as the
+          device cache: 10 cached train steps and cached predicts.
 - timing: each call's device time by CUDA events, with the L2 flushed
           and the card held by a spin kernel while the host enqueues the
           call (Timer); the median and the spread (min, max) of the reps.
@@ -152,7 +171,8 @@ name and power limit from nvidia-smi):
 
 --profile adds torch.profiler breakdowns of one more serve run and of one
 more train step of each model (senet154, ViT-B/16, the classifier at
-bucket 512 with K6 + K7's share, collab and structured included): device
+bucket 512 with K6 + K7's share, collab, structured and RetinaNet
+included, and of one detection predict): device
 time by kernel (for the serve run also every K5 kernel by name), the
 copy and NCHW/NHWC transpose kernels, and, for the train steps, the host
 ops with the most host time of their own.  --tile-sweep adds K5 at S
@@ -350,6 +370,21 @@ MOVIELENS = dict(n=100_000, users=600, items=9000, emb=30, bs=8192,
 ROSSMANN = dict(n=200_000, n_cat=20, levels=50, n_cont=20,
                 head=[1000, 500, 1], bs=1024, lr=1e-3, wd=1e-4, val_frac=0.1,
                 classes=5, cat_steps=10)
+# bench.py's bench_detection (:508-620): retinanet50 at feature 256 on 64
+# synthetic Pascal-shaped 375 x 500 images of 1-5 bright boxes in 20
+# classes, val 0.25, scaled under ARS (512, 1024) and padded to granularity
+# 128 (a 512 x 768 canvas), B 8, Adam2, wd 1e-4, clip 1.0, lr 1e-4
+DETECTION = dict(n=64, hw=(375, 500), classes=20, val_frac=0.25,
+                 ars=(512, 1024), gran=128, B=8, lr=1e-4, wd=1e-4, clip=1.0,
+                 steps=10)
+# the detection model card against CPU: retinanet18 at feature 32, B 2,
+# 128 x 192.  float32 reg, clas and the SSD loss, and in float64 also the
+# FPN's and subnets' gradients, within 1e-3 of their largest entry (as
+# VISION_CPU_TOL: through train-mode BatchNorms of B 2 float32 gradients
+# move by more than that on one device alone)
+DET_CHECK = dict(backbone="resnet18", feature=32, classes=20, B=2,
+                 hw=(128, 192))
+DET_CPU_TOL = 1e-3
 # collab and structured, card against CPU in float32 (TF32 off): the same
 # sums in other orders (cuBLAS's kernels, the embedding gradients'
 # atomic adds), each result within 1e-4 of its largest entry
@@ -3782,6 +3817,441 @@ def phase_structured(seed, profile=False):
                   "predict_ce": cat_ce}})
 
 
+# --------------------------------------------------------------- detection
+
+
+class CanvasLoader:
+    """Batches of a dataset's images already scaled and padded to one uint8
+    canvas (what BBoxDataLoader yields after its cv2 resize, with no
+    jitter): Batch(xs=(uint8 NHWC,), y=(bboxes, cats), mask) over the
+    loader's ``groups``, shuffled per epoch where ``shuffle``."""
+
+    def __init__(self, ds, groups, canvas, bb, cc, bs, shuffle, seed=0):
+        self.ds, self.groups = ds, [list(g) for g in groups]
+        self.canvas, self.bb, self.cc = canvas, bb, cc
+        self.bs, self.shuffle, self.seed, self.epoch = bs, shuffle, seed, 0
+
+    def __len__(self):
+        return len(self.groups)
+
+    def _batch(self, g):
+        from neuralnetworklibrary_tpu_torch.data.loader import Batch
+
+        idx = np.asarray(list(g) + [g[-1]] * (self.bs - len(g)))
+        mask = (np.arange(self.bs) < len(g)).astype(np.float32)
+        return Batch(xs=(self.canvas[idx],), y=(self.bb[idx], self.cc[idx]),
+                     mask=mask, n_valid=len(g))
+
+    def peek(self):
+        return self._batch(self.groups[0])
+
+    def __iter__(self):
+        groups = list(self.groups)
+        if self.shuffle:
+            np.random.default_rng((self.seed, self.epoch)).shuffle(groups)
+        for g in groups:
+            yield self._batch(g)
+        self.epoch += 1
+
+
+def detection_data(seed, tmp):
+    """bench_detection's synthetic Pascal-shaped set (bench.py:518-541):
+    64 images of 375 x 500, dark noise carrying 1-5 bright boxes of 20
+    classes, val 0.25; each scaled by get_AspectRatioScale under ARS (512,
+    1024) (nearest neighbour: no cv2 on the card's machine) and padded to
+    granularity 128.  Returns (BBoxDataObj with canvas loaders, the
+    (train + val) canvas, the val COCO json path)."""
+    from neuralnetworklibrary_tpu_torch.applications.detection import (
+        BBoxDataObj,
+        _pad_u8,
+        _snap_up,
+        canvas_targets,
+        get_transforms_bbox,
+    )
+    from neuralnetworklibrary_tpu_torch.applications.vision import (
+        get_AspectRatioScale,
+        hw_to_mm,
+    )
+    from neuralnetworklibrary_tpu_torch.data.split import SplitTrainVal
+
+    D = DETECTION
+    H0, W0 = D["hw"]
+    rng = np.random.default_rng(seed + 60)
+    ar, s = get_AspectRatioScale(H0, W0, *D["ars"])
+    h, w = int(H0 * s), int(W0 * s)
+    Hc, Wc = _snap_up(h, D["gran"]), _snap_up(w, D["gran"])
+    tfms = get_transforms_bbox("SideOn", jitter=0, scale_range=(1, 1))
+    rows = np.minimum((np.arange(h) / s).astype(np.int64), H0 - 1)
+    cols = np.minimum((np.arange(w) / s).astype(np.int64), W0 - 1)
+    images, pixels, anns = [], [], []
+    bmax = min(80, H0 // 2, W0 // 2)
+    for i in range(D["n"]):
+        img = rng.integers(0, 80, (H0, W0, 3), dtype=np.uint8)
+        target = []
+        for _ in range(int(rng.integers(1, 6))):
+            x, y = int(rng.integers(0, W0 - bmax)), int(rng.integers(
+                0, H0 - bmax))
+            bw, bh = int(rng.integers(bmax // 2, bmax)), int(rng.integers(
+                bmax // 2, bmax))
+            img[y:y + bh, x:x + bw] = rng.integers(120, 256, 3)
+            cat = int(rng.integers(0, D["classes"]))
+            target.append((hw_to_mm(np.asarray([x, y, bw, bh], np.float32)),
+                           cat))
+            anns.append({"id": len(anns), "image_id": i, "area": bw * bh,
+                         "bbox": [x, y, bw, bh], "category_id": cat + 1,
+                         "iscrowd": 0})
+        canvas = np.broadcast_to(_pad_u8(tfms[0].stats), (Hc, Wc, 3)).copy()
+        canvas[:h, :w] = img[rows][:, cols]
+        pixels.append(canvas)
+        images.append({"id": i, "img": f"im{i}.jpg", "target": target,
+                       "aspect_ratio": ar, "scale": s})
+    train, val = SplitTrainVal(list(range(D["n"])), val_frac=D["val_frac"],
+                               seed=0)
+    cats = {c: f"c{c + 1}" for c in range(D["classes"])}
+    data = BBoxDataObj(tmp, cats, D["B"], tfms, [images[i] for i in train],
+                       [images[i] for i in val], granularity=D["gran"])
+    data.cat2dscat = {c: c + 1 for c in range(D["classes"])}
+    canvas = np.stack([pixels[i] for i in train + val])
+    for name, idx, off, shuffle in (("train", train, 0, True),
+                                    ("val", val, len(train), False)):
+        dl = getattr(data, name + "_dl")
+        bb, cc = canvas_targets(dl.ds.images, data.max_objects, (Hc, Wc))
+        setattr(data, name + "_dl", CanvasLoader(
+            dl.ds, dl.groups, canvas[off:off + len(idx)], bb, cc, D["B"],
+            shuffle))
+    val_json = f"{tmp}/val.json"
+    with open(val_json, "w") as f:
+        json.dump({"images": [{"id": i, "width": W0, "height": H0}
+                              for i in val],
+                   "annotations": [a for a in anns if a["image_id"] in
+                                   set(val)],
+                   "categories": [{"id": c + 1, "name": n}
+                                  for c, n in cats.items()]}, f)
+    return data, canvas, val_json
+
+
+def count_device_ops(fn):
+    """(kernel launches, memcpy/memset ops) on the card during fn(), by
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = copies = 0
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if "Memcpy" in evt.key or "Memset" in evt.key:
+            copies += evt.count
+        else:
+            kernels += evt.count
+    return kernels, copies
+
+
+def detection_card_vs_cpu(seed):
+    """(a) retinanet18 at feature 32, 20 classes, B 2, 128 x 192, its
+    output convs random: one train-mode forward and backward through the
+    SSD loss on the card against the same model on the CPU, float32
+    (anchors equal; reg, clas, loss within DET_CPU_TOL x max) and float64
+    (also the gradients of every FPN and subnet parameter); then the
+    device decode + NMS on the card against the CPU on the same reg and
+    clas."""
+    import copy
+
+    from neuralnetworklibrary_tpu_torch.applications.detection import (
+        ObjectDetectionNet,
+        SSD_loss,
+        _predict_device,
+    )
+    from neuralnetworklibrary_tpu_torch.ops.augment import (
+        imagenet_stats,
+        normalize_batch,
+    )
+
+    C = DET_CHECK
+    H, W = C["hw"]
+    rng = np.random.default_rng(seed + 61)
+    imgs = rng.integers(0, 80, (C["B"], H, W, 3), dtype=np.uint8)
+    M = 3
+    bb = np.full((C["B"], M, 4), -1.0, np.float32)
+    cc = np.full((C["B"], M), -1, np.int64)
+    for i in range(C["B"]):
+        for j in range(1 + i):
+            x, y = rng.integers(0, W - 60), rng.integers(0, H - 60)
+            bw, bh = rng.integers(20, 60, 2)
+            imgs[i, y:y + bh, x:x + bw] = rng.integers(120, 256, 3)
+            bb[i, j] = [x, y, x + bw - 1, y + bh - 1]
+            cc[i, j] = rng.integers(0, C["classes"])
+    x = normalize_batch(torch.from_numpy(imgs), imagenet_stats)
+    y = (torch.from_numpy(bb), torch.from_numpy(cc))
+    torch.manual_seed(seed)
+    cpu = ObjectDetectionNet(C["classes"], backbone=C["backbone"],
+                             feature_size=C["feature"], device="cpu")
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for sub in (cpu.regressor, cpu.classifier):
+            sub.output.weight.normal_(0, 1e-3, generator=g)
+            sub.output.bias.normal_(0, 1.0, generator=g)
+    res = {}
+    for dtype in (torch.float32, torch.float64):
+        outs = []
+        for dev in ("cpu", "cuda"):
+            m = copy.deepcopy(cpu).to(dev, dtype)
+            anchors, reg, clas = m(x.to(dev, dtype), train=True)
+            loss = SSD_loss()((anchors, reg, clas),
+                              tuple(t.to(dev) for t in y))
+            loss.backward()
+            grads = {n: p.grad.cpu() for n, p in m.named_parameters()
+                     if n.startswith(("fpn", "regressor", "classifier"))}
+            outs.append((anchors.cpu(), reg.detach().cpu(),
+                         clas.detach().cpu(), loss.detach().cpu(), grads))
+        (ac, rc, cc_, lc, gc), (ag, rg, cg, lg, gg) = outs
+        err = {"anchors_equal": bool(torch.equal(ac.float(), ag.float())),
+               "reg": float((rg - rc).abs().max() / rc.abs().max()),
+               "clas": float((cg - cc_).abs().max() / cc_.abs().max()),
+               "loss": float(abs(lg - lc) / abs(lc)),
+               "grads": max(float((gg[n] - t).abs().max() / t.abs().max())
+                            for n, t in gc.items() if t.abs().max() > 0)}
+        res[str(dtype).split(".")[1]] = err
+        gated = ("reg", "clas", "loss") + (("grads",) if dtype ==
+                                           torch.float64 else ())
+        if not err["anchors_equal"] or any(err[k] > DET_CPU_TOL
+                                           for k in gated):
+            fail(f"detection card vs CPU ({dtype}): {err}")
+        if dtype == torch.float32:
+            nms_in = (rc, cc_, ac)
+    # NMS: the same f32 reg / clas through decode, threshold and NMS
+    want = _predict_device(*nms_in, (H, W), top_k=1000, out_k=20,
+                           return_counts=True)
+    got = [t.cpu() for t in _predict_device(
+        *(t.cuda() for t in nms_in), (H, W), top_k=1000, out_k=20,
+        return_counts=True)]
+    nms = {"kept": int((want[2] > 0).sum()),
+           "classes_equal": bool(torch.equal(got[1], want[1])),
+           "scores_equal": bool(torch.equal(got[2], want[2])),
+           "counts_equal": bool(torch.equal(got[3], want[3])),
+           "box_max_abs_err": float((got[0] - want[0]).abs().max())}
+    if not (nms["classes_equal"] and nms["scores_equal"]
+            and nms["counts_equal"] and nms["box_max_abs_err"] <= 1e-3
+            and nms["kept"] > 0):
+        fail(f"detection NMS card vs CPU: {nms}")
+    emit({"phase": "detection", "part": "card vs CPU",
+          "config": f"retinanet18, feature {C['feature']}, {C['classes']} "
+                    f"classes, random output convs, B {C['B']}, {H} x {W}, "
+                    "train mode, SSD_loss",
+          "err_over_max": res,
+          "tol": f"{DET_CPU_TOL} x max: float32 reg, clas, loss; float64 "
+                 "also every FPN and subnet gradient (TF32 off)",
+          "nms": nms, "nms_tol": "classes, scores, counts equal; boxes "
+                                 "1e-3 px"})
+
+
+def detection_bench(seed, profile=False):
+    """(b) bench_detection's configuration through the port's
+    ObjectDetectionLearner (retinanet50, feature 256, 20 classes, B 8,
+    Adam2, wd 1e-4, clip 1.0, lr 1e-4, bf16 autocast) on the synthetic set:
+    10 steps on one batch, evaluate('val', [SSD_RegLoss, SSD_ClasLoss]),
+    predict('val', thresh 0.05, max_boxes 20) with NMS on the device,
+    compute_mAP and coco_pascal_eval (the C++ helper built here); then the
+    canvas installed as the device cache: cached train steps and cached
+    predict."""
+    import tempfile
+
+    from neuralnetworklibrary_tpu_torch.applications.detection import (
+        ObjectDetectionLearner,
+        SSD_ClasLoss,
+        SSD_RegLoss,
+        retinanet50,
+    )
+    from neuralnetworklibrary_tpu_torch.ops import boxes as box_ops
+
+    D = DETECTION
+    B = D["B"]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data, canvas, val_json = detection_data(seed, tmp)
+        setup_s = time.perf_counter() - t0
+        torch.manual_seed(seed)
+        model = retinanet50(D["classes"])
+        learner = ObjectDetectionLearner(tmp, data, model, "Adam2", seed=seed)
+        learner.init_optimizer(wd=D["wd"], clip=D["clip"])
+        batch = data.train_dl.peek()
+        n_anchors = int(model.anchors_for(batch.xs[0].shape[1:3],
+                                          "cuda").shape[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, secs = timed_steps(learner, batch, D["lr"], D["steps"])
+        peak = torch.cuda.max_memory_allocated()
+        train = step_report(losses, secs, B, peak)
+        host_loop = loader_steps(learner, list(data.train_dl), D)
+        lf = learner.loss_func
+        t0 = time.perf_counter()
+        val = learner.evaluate("val", [SSD_RegLoss(lf), SSD_ClasLoss(lf)])
+        eval_s = time.perf_counter() - t0
+        if not (np.isfinite(val[0]) and np.isfinite(val[1]).all()):
+            fail(f"detection evaluate gave {val}")
+        n_val = len(data.val_ds)
+
+        def predict(thresh=0.05):
+            return learner.predict("val", thresh=thresh, max_boxes=20)
+
+        def timed_predict(thresh=0.05, reps=3):
+            """The last output and the median seconds of ``reps`` calls."""
+            secs = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = predict(thresh)
+                secs.append(time.perf_counter() - t0)
+            return out, statistics.median(secs)
+
+        def check(out, least):
+            """Per image at most 20 boxes (at least ``least``), finite,
+            inside the original image, scores descending."""
+            pb, _, cs = out
+            n = [len(c) for c in cs]
+            H0, W0 = D["hw"]
+            ok = (len(pb) == n_val and all(least <= k <= 20 for k in n)
+                  and all(c == sorted(c, reverse=True) for c in cs)
+                  and all(np.isfinite(b).all() and (b >= 0).all()
+                          and b[2] <= Wc / s + 1e-3 and b[3] <= Hc / s + 1e-3
+                          for bs in pb for b in bs))
+            if not ok:
+                fail(f"detection predict: boxes per image {n}")
+            return n
+
+        Hc, Wc = batch.xs[0].shape[1:3]
+        s = data.val_ds.images[0]["scale"]
+        predict()                                     # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        out, pred_s = timed_predict()
+        pred_peak = torch.cuda.max_memory_allocated()
+        n_boxes = check(out, 0)
+        if any(min(c) <= 0.05 for c in out[2] if c):
+            fail("detection predict kept a score <= thresh 0.05")
+        # thresh 0: every top-k candidate enters the NMS (its full load)
+        predict(0.0)
+        full, full_s = timed_predict(0.0)
+        check(full, 1)
+        preds = list(zip(*full))
+        # device operations of one predict batch, and of its NMS alone
+        xs, _, _ = learner._to_device(data.val_dl.peek())
+        hw = xs[0].shape[1:3]
+        nms_ops, sweeps, pred_ops = {}, {}, {}
+        with torch.no_grad():
+            fwd_ops = count_device_ops(lambda: learner._eval_forward(xs))
+            anchors, reg, clas = learner._eval_forward(xs)
+            for th in (0.05, 0.0):
+                nms_in = _nms_inputs(reg, clas, anchors, hw, th)
+                nms_ops[th] = count_device_ops(lambda: box_ops.batched_nms(
+                    *nms_in, top_k=1000, out_k=20))
+                sweeps[th] = box_ops.last_sweeps
+                pred_ops[th] = count_device_ops(lambda: learner.predictor(
+                    hw, reg, clas, anchors, th, max_boxes=20))
+        t0 = time.perf_counter()
+        m_ap = learner.compute_mAP(preds, thresholds=[0.5])
+        m_ap_coco = learner.compute_mAP(preds)
+        map_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stats = learner.coco_pascal_eval(val_json, preds)
+        coco_s = time.perf_counter() - t0
+        if not (0.0 <= m_ap <= 1.0 and 0.0 <= m_ap_coco <= 1.0
+                and len(stats) == 12 and np.isfinite(stats).all()):
+            fail(f"detection mAP {m_ap}, {m_ap_coco}, COCO stats {stats}")
+        if profile:
+            profile_step(lambda: learner.train1minibatch(batch, D["lr"]),
+                         "detection_profile")
+            profile_step(predict, "detection_predict_profile")
+
+        # the device cache: the same canvases on the card
+        learner.install_device_cache(canvas, include_val=True)
+        cached_loop = loader_steps(learner, list(data.train_dl), D)
+        if profile:
+            cb = data.train_dl.peek()
+            profile_step(lambda: learner.train1minibatch(cb, D["lr"]),
+                         "detection_cached_profile")
+        predict()                                     # warm-up
+        cout, cpred_s = timed_predict()
+        check(cout, 0)
+        predict(0.0)
+        cfull, cfull_s = timed_predict(0.0)
+        check(cfull, 1)
+    emit({"phase": "detection", "part": "bench_detection",
+          "config": "bench.py bench_detection: retinanet50, feature 256, "
+                    "20 classes, ObjectDetectionLearner, Adam2, wd 1e-4, "
+                    "clip 1.0, lr 1e-4",
+          "dtype": "bfloat16 (autocast)", "B": B,
+          "images": f"{D['n']} synthetic {D['hw'][0]} x {D['hw'][1]}, "
+                    f"val {D['val_frac']}; ARS {D['ars']}, granularity "
+                    f"{D['gran']}",
+          "canvas": list(batch.xs[0].shape[1:3]), "anchors": n_anchors,
+          "setup_s": setup_s, "steps": D["steps"], **train,
+          "val": {"loss": val[0], "SSD_RegLoss": float(val[1][0]),
+                  "SSD_ClasLoss": float(val[1][1]), "eval_s": eval_s,
+                  "images": n_val},
+          "predict": {"images": n_val, "seconds_median_of_3": pred_s,
+                      "img_per_s": n_val / pred_s,
+                      "peak_memory_GB": pred_peak / 1e9,
+                      "boxes_per_image": n_boxes,
+                      "thresh_0": {"seconds": full_s,
+                                   "img_per_s": n_val / full_s},
+                      "device_ops_per_batch": {
+                          "forward": list(fwd_ops),
+                          **{f"thresh_{th}": {
+                              "decode_nms_fetch": list(pred_ops[th]),
+                              "batched_nms": list(nms_ops[th]),
+                              "nms_sweeps": sweeps[th]} for th in (0.05,
+                                                                   0.0)},
+                          "as": "[kernel launches, memcpy/memset]"}},
+          "mAP_on": "predict('val', thresh 0)",
+          "mAP_pascal": m_ap, "mAP_coco_thresholds": m_ap_coco,
+          "mAP_s": map_s, "coco_stats": [float(v) for v in stats],
+          "coco_eval_s": coco_s,
+          "host_loader_steps": host_loop,
+          "cached": {**cached_loop,
+                     "predict_seconds_median_of_3": cpred_s,
+                     "predict_img_per_s": n_val / cpred_s,
+                     "predict_thresh_0_img_per_s": n_val / cfull_s,
+                     "canvas_GB": canvas.nbytes / 1e9}})
+
+
+def loader_steps(learner, batches, D):
+    """D['steps'] train1minibatch calls cycling over ``batches``, each
+    synchronised: losses (finite), ms of each, and img/s of the median of
+    steps 2-10."""
+    losses, ms = [], []
+    for i in range(D["steps"]):
+        t0 = time.perf_counter()
+        losses.append(float(learner.train1minibatch(
+            batches[i % len(batches)], D["lr"])))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    if not np.isfinite(losses).all():
+        fail(f"detection train losses {losses}")
+    steady = statistics.median(ms[1:])
+    return {"losses": losses, "ms_per_step": ms,
+            "ms_per_step_median_2_to_10": steady,
+            "train_img_per_s": D["B"] / steady * 1e3}
+
+
+def _nms_inputs(reg, clas, anchors, hw, thresh):
+    """_predict_device's decode and threshold, to count its NMS alone."""
+    from neuralnetworklibrary_tpu_torch.ops.boxes import decode_boxes
+
+    boxes = decode_boxes(reg, anchors, hw)
+    scores = clas.amax(-1)
+    return boxes, clas.argmax(-1), torch.where(scores > thresh, scores,
+                                               torch.zeros_like(scores))
+
+
+def phase_detection(seed, profile=False):
+    detection_card_vs_cpu(seed)
+    detection_bench(seed, profile)
+
+
 def tc_smem_bytes(hd, tile, stages, n_stationary):
     """Shared memory of a tensor-core flash kernel (TcSmem in the source)."""
     halves = hd // 64
@@ -3984,6 +4454,7 @@ def main():
     clf_launches = phase_classifier(args.seed, args.profile)
     phase_collab(args.seed, args.profile)
     phase_structured(args.seed, args.profile)
+    phase_detection(args.seed, args.profile)
     k5_rows = phase_timing(args.seed)
     flash_t = phase_flash_timing(args.seed)
     lstm_t = phase_lstm_timing(args.seed)

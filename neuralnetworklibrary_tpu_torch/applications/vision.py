@@ -19,8 +19,10 @@ body their NCHW view in ``channels_last`` memory.
 Not ported yet (ROADMAP Queue 1): the host resize and rotate-zoom (they
 need cv2), the file-based ``ImageDataset``/``ImageDataObj`` (``from_csv``,
 ``from_folders``), ``ImageLearner.enable_device_cache``, ``data_resize``,
-``TTA``, ``confusion_matrix``, ``show_images``, ``load_pretrained_body``,
-and the inception and nasnet bodies.
+``TTA``, ``confusion_matrix``, ``show_images`` and ``ShowImages``,
+``load_pretrained_body``, and the inception and nasnet bodies.  The bbox
+helpers that detection imports (``open_image``, ``hw_to_mm``,
+``get_AspectRatioScale``, ...) are here.
 """
 
 from __future__ import annotations
@@ -47,6 +49,77 @@ from neuralnetworklibrary_tpu_torch.ops.augment import (  # noqa: F401
 )
 
 _TODO = "is not ported yet (ROADMAP Queue 1)"
+
+# mAP threshold sets (Vision.py:48-49)
+Pascal_thresholds = [0.5]
+COCO_thresholds = [0.5, 0.55, 0.6, 0.65, 0.7, 0.75, 0.8, 0.85, 0.9, 0.95]
+
+
+def correct_foldername(p: str) -> str:
+    return p if p.endswith("/") else p + "/"
+
+
+def open_image(img_name: str) -> np.ndarray:
+    """cv2 image open -> RGB float32 in [0, 1], (H, W, 3) (Vision.py:54-62).
+    cv2 is imported here: the card's machine has none."""
+    import cv2
+
+    flags = cv2.IMREAD_UNCHANGED + cv2.IMREAD_ANYCOLOR
+    img = cv2.imread(img_name, flags)
+    if img is None:
+        raise FileNotFoundError(img_name)
+    img = img.astype(np.float32) / 255
+    if img.ndim == 2:
+        img = np.stack([img] * 3, axis=-1)
+    return img[:, :, ::-1].copy()  # BGR -> RGB
+
+
+def hw_to_mm(b):
+    """[x, y, w, h] -> [x_min, y_min, x_max, y_max], inclusive-pixel
+    convention (x_max = x + w - 1; Vision.py:191-193)."""
+    b = np.asarray(b, np.float32)
+    return np.concatenate([b[..., :2], b[..., :2] + b[..., 2:] - 1], axis=-1)
+
+
+def mm_to_hw(b):
+    """[x_min, y_min, x_max, y_max] -> [x, y, w, h] (w = x_max - x_min + 1;
+    Vision.py:195-197)."""
+    b = np.asarray(b, np.float32)
+    return np.concatenate([b[..., :2], b[..., 2:] - b[..., :2] + 1], axis=-1)
+
+
+def convert_bbox_list(bbox_list):
+    """Standard bbox list [(box, cat), ...] -> ((N, 4) boxes, (N,) cats)
+    (Vision.py:199-210); the boxes pass through unchanged (min-max)."""
+    if len(bbox_list) == 0:
+        return np.zeros((0, 4), np.float32), np.zeros((0,), np.int64)
+    boxes = np.asarray([b for b, c in bbox_list], np.float32)
+    cats = np.asarray([c for b, c in bbox_list], np.int64)
+    return boxes, cats
+
+
+def rev_bbox_list(boxes, cats):
+    """Inverse of :func:`convert_bbox_list`, stopping at the first -1
+    padding row (Vision.py:212-232)."""
+    boxes = np.asarray(boxes, np.float32)
+    cats = np.asarray(cats)
+    out = []
+    for i in range(len(cats)):
+        if cats[i] == -1:
+            break
+        out.append((boxes[i], int(cats[i])))
+    return out
+
+
+def get_AspectRatioScale(rows, cols, min_side=608, max_side=1216):
+    """RetinaNet's scale rule: the shorter side to ``min_side`` unless the
+    longer one would pass ``max_side`` (Vision.py:258-269).  Returns
+    (rows / cols, scale)."""
+    smallest, largest = min(rows, cols), max(rows, cols)
+    scale = min_side / smallest
+    if largest * scale > max_side:
+        scale = max_side / largest
+    return rows / cols, scale
 
 
 class Transform:

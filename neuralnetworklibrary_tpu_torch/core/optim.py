@@ -56,8 +56,8 @@ class Optimizer:
                  clip=None):
         if opt_func in NOT_PORTED:
             raise NotImplementedError(
-                f"optimizer {opt_func!r} is not ported yet (ROADMAP Queue 1 "
-                f"item 2a, core/optim.py)")
+                f"optimizer {opt_func!r} is not ported yet (ROADMAP Queue 1, "
+                f"the rest of core and the Learner)")
         if opt_func not in opt_dict:
             raise ValueError(f"unknown optimizer {opt_func!r}; choose from "
                              f"{list(opt_dict)}")

@@ -270,8 +270,11 @@ class Learner:
     def _to_device(self, batch: Batch):
         """(xs, y, mask) on the device: pinned host copies sent without
         blocking the host; uint8 arrays (images) stay uint8, other integer
-        arrays become int64."""
+        arrays become int64.  A tuple target (detection's (bboxes, cats))
+        crosses element by element."""
         def put(a):
+            if isinstance(a, tuple):
+                return tuple(put(x) for x in a)
             t = _as_batch_tensor(torch.from_numpy(np.ascontiguousarray(a)))
             if self.device.type == "cuda":
                 t = t.pin_memory()
@@ -379,9 +382,18 @@ class Learner:
         rows.  An end metric (a name in ``core.metrics.end_metrics``, or an
         object with ``is_end_metric``) is called once on the whole set's
         valid rows, which each batch hands to the host through the
-        metric's ``prepare(y_pred, y)`` where it has one."""
+        metric's ``prepare(y_pred, y)`` where it has one.  Batch metrics
+        see the whole model output (detection's (anchors, reg, clas)); a
+        'bbox' target counts no accuracy and takes no end metric
+        (learner.py:815-851 of the JAX package)."""
         dl = self.data.train_dl if dataset_type == "train" else \
             self.data.val_dl
+        if self.target_type == "bbox" and any(M.is_end_metric(m)
+                                              for m in metrics):
+            raise ValueError(
+                "end metrics (whole-dataset metrics like 'auc') are not "
+                "supported for tuple-target (bbox) learners; use batch "
+                "metrics or compute_mAP/coco_pascal_eval instead")
         batch_ms = [m for m in metrics if not M.is_end_metric(m)]
         end_fns = [M.end_metrics[m]() if isinstance(m, str) else m
                    for m in metrics if M.is_end_metric(m)]

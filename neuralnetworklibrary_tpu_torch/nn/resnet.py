@@ -11,7 +11,8 @@ by 1 (torch pads it with -inf, as flax does).
 A module takes ``train`` and ``bn_train`` as the JAX modules do (see
 ``nn.layers``).  ``num_classes=None`` builds the body only: ``forward``
 returns the (B, C, H/32, W/32) feature map, which
-``applications.vision.ImageClassificationNet`` pools.
+``applications.vision.ImageClassificationNet`` pools;
+``return_pyramid=True`` returns [C3, C4, C5] for RetinaNet's FPN.
 """
 
 from __future__ import annotations
@@ -101,18 +102,21 @@ class ResNet(nn.Module):
     """torchvision-compatible ResNet over NCHW (``channels_last``).
 
     ``num_classes=None`` returns the (B, C, H/32, W/32) feature map (the
-    'default_cut' body, Vision.py:1205-1219).  ``device`` defaults to cuda
-    (``nn.transformer.resolve_device``).  The JAX module's
-    ``return_pyramid`` (RetinaNet's FPN) comes with the detection slice.
+    'default_cut' body, Vision.py:1205-1219).  ``return_pyramid=True``
+    returns the last maps of stages 2-4, [C3, C4, C5], for the FPN
+    (retinanet.py:330-340).  ``device`` defaults to cuda
+    (``nn.transformer.resolve_device``).
     """
 
     def __init__(self, block, layers: Sequence[int],
                  num_classes: Optional[int] = None, groups: int = 1,
-                 base_width: int = 64, in_channels: int = 3, device=None):
+                 base_width: int = 64, in_channels: int = 3,
+                 return_pyramid: bool = False, device=None):
         super().__init__()
         dev = resolve_device(device)
         self.block, self.layers = block, tuple(layers)
         self.num_classes = num_classes
+        self.return_pyramid = return_pyramid
         self.stem = ConvBN(in_channels, 64, 7, 2, 3, use_relu=True,
                            device=dev)
         kw = ({"groups": groups, "base_width": base_width}
@@ -135,12 +139,21 @@ class ResNet(nn.Module):
     def feature_channels(self) -> int:
         return 512 * self.block.expansion
 
+    @property
+    def pyramid_channels(self):
+        e = self.block.expansion
+        return [128 * e, 256 * e, 512 * e]
+
     def forward(self, x, train: bool = False, bn_train=None):
         x = self.stem(x, train, bn_train)
         x = F.max_pool2d(x, 3, 2, 1)
+        feats = []
         for stage, n_blocks in enumerate(self.layers):
             for i in range(n_blocks):
                 x = getattr(self, f"layer{stage + 1}_{i}")(x, train, bn_train)
+            feats.append(x)
+        if self.return_pyramid:
+            return feats[1:]
         if self.fc is None:
             return x
         return self.fc(x.mean(dim=(2, 3)))

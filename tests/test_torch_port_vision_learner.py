@@ -272,7 +272,7 @@ def test_transforms_and_image_learner():
 def test_port_modules_leave_jax_unloaded():
     """Importing every module of the port and chip_smoke.py loads neither
     jax nor the JAX package (jax is importable here, and not blocked), nor
-    pandas, sklearn or matplotlib, which the card's machine lacks."""
+    pandas, sklearn, matplotlib or cv2, which the card's machine lacks."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import neuralnetworklibrary_tpu_torch as pkg
@@ -281,10 +281,10 @@ def test_port_modules_leave_jax_unloaded():
         for name in names + ["chip_smoke"]:
             importlib.import_module(name)
         roots = ("jax", "flax", "neuralnetworklibrary_tpu", "pandas",
-                 "sklearn", "matplotlib")
+                 "sklearn", "matplotlib", "cv2")
         bad = [m for m in sys.modules if m.split(".")[0] in roots]
         assert not bad, bad
-        for app in ("vision", "text", "collab", "structured"):
+        for app in ("vision", "text", "collab", "structured", "detection"):
             assert f"neuralnetworklibrary_tpu_torch.applications.{app}" in names
         print("ok", len(names))
     """)
