@@ -40,8 +40,9 @@ name and power limit from nvidia-smi):
           Flash kernel launches are counted over (b).
 - auto_flash: the models' auto rule: the default TransformerLM (hd 32)
           trains a bf16 step through the Learner on the einsum path (no
-          flash launch), at hd 64 on the flash path; sinks=True runs
-          einsum; flash_attention=True at hd 32 raises.
+          flash launch), at hd 64 on the flash path, and so do a
+          sinks=True model and a packed one (reset_at); flash_attention=
+          True at hd 32 raises.
 - lstm:   K6 (LSTM forward scan) and K7 (backward scan) against their
           plain versions on the same bf16 inputs and residuals, B 1, 3, 64
           x T 1, 7, 75 x H 24, 400, 1150 and three shapes for the kernels'
@@ -69,6 +70,12 @@ name and power limit from nvidia-smi):
           and without a bias, key mask off / ragged / one batch row fully
           masked (bidirectional), dropout 0 and 0.1, at T 512, 114 and (in
           the bidirectional case) 200, and at the T5 path's own two shapes.
+          Packed rows: q_start over random documents (a quarter one token
+          long) with and without a bias, a window, dropout and a key mask
+          over one document's every key, f32 and bf16 (bf16 dq and dk with
+          the delta slack of short documents, delta_slack); K1's sink,
+          causal, bidirectional and with q_start, with its gradient.  The
+          edges phase adds the packed rows' edges and the Qwen3 shape.
 - t5:     T5-base (HF t5-base's config.json: d_model 768, 12 heads, d_ff
           3072, 12 + 12 layers, vocab 32,128, relu MLP, RMSNorm, 32
           relative buckets out to 128, tied head scaled by 768**-0.5) with
@@ -151,6 +158,18 @@ name and power limit from nvidia-smi):
           compute_mAP and coco_pascal_eval on the thresh-0 predictions
           (its C++ helper built with g++ here); then the canvas as the
           device cache: 10 cached train steps and cached predicts.
+- qwen3:  Qwen3-0.6B (HF Qwen/Qwen3-0.6B config.json) with random
+          weights through load_qwen3, on packed rows of synthetic
+          documents (reset_at = eos, pad a dedicated id): (a) 2 layers at
+          full width, f32, flash path against einsum path on two rows
+          (loss 1e-4, gradients 1e-3 x max), and three documents alone
+          against their place in a row; (b) the full 28 layers, bf16, B 4
+          x T 4096, Adam2, PackedSeqCrossEntropyLoss, through the Learner
+          over ArrayDataset / DataLoader: 10 steps on successive batches,
+          evaluate over 2, exact K1-K3 launches (28 a forward, 28 a
+          backward), tokens/s and non-pad tokens/s, peak memory; (c)
+          fused_ce=True: the chunked CE against the materialised one on a
+          batch, then 3 steps with FusedSeqCrossEntropyLoss and their peak.
 - timing: each call's device time by CUDA events, with the L2 flushed
           and the card held by a spin kernel while the host enqueues the
           call (Timer); the median and the spread (min, max) of the reps.
@@ -168,9 +187,14 @@ name and power limit from nvidia-smi):
           shape (B 64, H 12, T 197, hd 64, bidirectional), with SDPA's
           cuDNN and flash backends pinned as at the GPT-2 shape.  The
           flash kernel phase also holds K1-K3 at that shape, bf16 and f32.
+          K1-K3 at the Qwen3 path's packed rows (B 4, T 4096, H 16, hd
+          128, their q_start; bound from the attended pairs), beside the
+          same kernels over the whole causal triangle, with SDPA's
+          memory-efficient backend and the block-diagonal causal mask.
 
 --profile adds torch.profiler breakdowns of one more serve run and of one
-more train step of each model (senet154, ViT-B/16, the classifier at
+more train step of each model (senet154, ViT-B/16, Qwen3-0.6B, the
+classifier at
 bucket 512 with K6 + K7's share, collab, structured and RetinaNet
 included, and of one detection predict): device
 time by kernel (for the serve run also every K5 kernel by name), the
@@ -283,6 +307,20 @@ FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (3e-2, 1e-2)}
 DBIAS_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-5, 1e-3)}
 GPT2 = dict(vocab_size=50257, d_model=768, n_heads=12, n_layers=12,
             max_len=1024, norm_eps=1e-5)
+# Qwen3-0.6B (HF Qwen/Qwen3-0.6B config.json): hidden 1024, 28 layers, 16
+# heads of 128 (16 x 128 = 2048 != 1024) over 8 kv heads, SwiGLU 3072,
+# RMSNorm eps 1e-6, rope_theta 1e6, q/k norms, tied embeddings, no biases
+QWEN3 = dict(vocab_size=151936, d_model=1024, n_layers=28, n_heads=16,
+             n_kv_heads=8, head_dim=128, d_ff=3072, norm_eps=1e-6,
+             rope_base=1e6)
+# its pretraining traffic: B 4 rows of T 4096 packed with synthetic
+# documents (log-normal lengths, median 512, sigma 1.0, clipped to [8,
+# 4095]); eos <|endoftext|> (151643, Qwen's document separator), pad a
+# dedicated id (151935, an unused slot of the padded vocabulary); Adam2 at
+# lr 3e-4, wd 0.1; 10 steps, evaluate over 2 batches; 3 fused-CE steps
+QWEN3_TRAFFIC = dict(B=4, T=4096, median=512, sigma=1.0, min_len=8,
+                     max_len=4095, eos=151643, pad=151935, lr=3e-4, wd=0.1,
+                     steps=10, eval_batches=2, fused_steps=3)
 LSTM_SOURCE = "neuralnetworklibrary_tpu_torch/csrc/lstm_scan.cu"
 LSTM_REPLACES = {"lstm_fwd": "neuralnetworklibrary_tpu/ops/pallas_lstm.py:49",
                  "lstm_bwd": "neuralnetworklibrary_tpu/ops/pallas_lstm.py:138"}
@@ -868,7 +906,7 @@ def flash_case(rng, B, T, H, hd, dtype):
 
 
 def flash_plain(q, k, v, do, window, dropout, seed, causal=True, bias=None,
-                kv_mask=None):
+                kv_mask=None, q_start=None):
     """The plain version in float32 on the same inputs: o, lse (B*H, T),
     dq, dk, dv, and dbias when there is a bias."""
     from neuralnetworklibrary_tpu_torch.ops.flash_attention import (
@@ -883,13 +921,13 @@ def flash_plain(q, k, v, do, window, dropout, seed, causal=True, bias=None,
         wrt.append(bias)
     o, lse = reference_flash_attention(
         qf, kf, vf, 1.0 / hd ** 0.5, window, causal, dropout, seed,
-        bias=bias, kv_mask=kv_mask, return_lse=True)
+        bias=bias, kv_mask=kv_mask, q_start=q_start, return_lse=True)
     grads = torch.autograd.grad(o, wrt, do.float())
     return (o.detach(), lse.detach().reshape(B * H, T)) + tuple(grads)
 
 
 def flash_kernels(q, k, v, do, window, dropout, seed, causal=True,
-                  bias=None, kv_mask=None):
+                  bias=None, kv_mask=None, q_start=None):
     """K1, then K2 and K3 on the saved (o, lse): o, lse, dq, dk, dv; with
     a bias K3 runs twice, alone and with dbias (K4 folded into its pass),
     and the two calls' dk and dv must agree bit for bit: o, lse, dq, dk,
@@ -903,7 +941,8 @@ def flash_kernels(q, k, v, do, window, dropout, seed, causal=True,
 
     B, T, H, hd = q.shape
     scale = 1.0 / hd ** 0.5
-    kw = dict(causal=causal, bias=bias, kvm=additive_mask(kv_mask))
+    kw = dict(causal=causal, bias=bias, kvm=additive_mask(kv_mask),
+              qs=q_start)
     o, lse = flash_fwd(q, k, v, scale, window, dropout, seed, **kw)
     delta = ((do.float() * o.float()).sum(-1).transpose(1, 2)
              .reshape(B * H, T).contiguous())
@@ -927,26 +966,30 @@ def additive_mask(kv_mask):
         ~kv_mask, -1e30)
 
 
-def tol_share(got, want, tol, names):
-    """({name: max |err|}, the largest share of its tolerance (atol, rtol)
-    any element uses) for tensors compared in float32; a check passes while
-    the share <= 1."""
+def tol_share(got, want, tol, names, slack=None):
+    """({name: max |err|}, the largest share of its tolerance (atol, rtol),
+    plus the elementwise ``slack[name]`` where given, that any element
+    uses) for tensors compared in float32; a check passes while the share
+    <= 1."""
     atol, rtol = tol
     errs, share = {}, 0.0
     for name, g, w in zip(names, got, want):
         diff = (g.float() - w.float()).abs()
+        room = atol + rtol * w.float().abs()
+        if slack and name in slack:
+            room = room + slack[name]
         errs[name] = float(diff.max())
-        share = max(share, float((diff / (atol + rtol * w.float().abs()))
-                                 .max()))
+        share = max(share, float((diff / room).max()))
     return errs, share
 
 
-def flash_errors(got, want, dtype, slack=None):
-    """tol_share for o, lse, dq, dk, dv at the flash tolerance of dtype, and
+def flash_errors(got, want, dtype, slack=None, grad_slack=None):
+    """tol_share for o, lse, dq, dk, dv at the flash tolerance of dtype
+    (dq and dk plus the elementwise ``grad_slack``, see delta_slack), and
     for dbias (when there is one) at DBIAS_TOL relative to its largest
     entry, plus the elementwise ``slack``."""
     errs, share = tol_share(got[:5], want[:5], FLASH_TOL[dtype],
-                            ("o", "lse", "dq", "dk", "dv"))
+                            ("o", "lse", "dq", "dk", "dv"), grad_slack)
     if len(got) > 5:
         a, rtol = DBIAS_TOL[dtype]
         ref = want[5].float().abs()
@@ -959,11 +1002,12 @@ def flash_errors(got, want, dtype, slack=None):
     return errs, share
 
 
-def dbias_slack(q, k, v, do, o, causal, bias, kv_mask, window=0):
+def dbias_slack(q, k, v, do, o, causal, bias, kv_mask, window=0,
+                q_start=None):
     """bf16 room for K4 (see DBIAS_TOL): 2 * sum_b P_b * c_b per (h, q, k),
-    with P the undropped softmax of the plain version (its causal band and
-    window) and c_b the bound on a row's delta error from the kernels'
-    bf16 o."""
+    with P the undropped softmax of the plain version (its causal band,
+    window and document starts) and c_b the bound on a row's delta error
+    from the kernels' bf16 o."""
     q, k, do = q.float(), k.float(), do.float()
     T, hd = q.shape[1], q.shape[3]
     s = torch.einsum("bqhd,bkhd->bhqk", q, k) / hd ** 0.5 + bias
@@ -974,20 +1018,60 @@ def dbias_slack(q, k, v, do, o, causal, bias, kv_mask, window=0):
         if window > 0:
             seen &= ~torch.ones_like(seen).tril(-window)
         s = s.masked_fill(~seen, float("-inf"))
+    if q_start is not None:
+        pos = torch.arange(T, device=q.device)
+        s = s.masked_fill(pos[None, None, None, :]
+                          < q_start.long()[:, None, :, None], float("-inf"))
     c = 2 ** -9 * (do.abs() * o.float().abs()).sum(-1).transpose(1, 2)
     return 2 * torch.einsum("bhqk,bhq->hqk", torch.softmax(s, -1), c)
+
+
+def delta_slack(q, k, v, do, o, bias, kv_mask, window, q_start):
+    """bf16 room for dq and dk of packed rows: twice their error bound from
+    delta taken from the kernels' bf16 o (as the JAX package takes it),
+    c_i = 2**-9 * sum_d |dO||o| per row, which moves dS_ij by P_ij * c_i:
+    dq_id by scale * c_i * sum_j P_ij |k_jd|, dk_jd by scale * sum_i P_ij
+    c_i |q_id|, P the plain version's undropped softmax.  FLASH_TOL's atol
+    was sized for rows over many keys, where |o| is small; a row of a
+    short document sees few keys, so |o| nears |v| and c_i grows with hd
+    (~0.16 at hd 128 for one-token documents)."""
+    q, k, do = q.float(), k.float(), do.float()
+    T, hd = q.shape[1], q.shape[3]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / hd ** 0.5
+    if bias is not None:
+        s = s + bias
+    if kv_mask is not None:
+        s = s.masked_fill(~kv_mask[:, None, None, :], -1e30)
+    pos = torch.arange(T, device=q.device)
+    seen = pos[:, None] >= pos[None, :]
+    if window > 0:
+        seen &= pos[:, None] - pos[None, :] < window
+    seen = seen & (pos[None, None, None, :]
+                   >= q_start.long()[:, None, :, None])
+    p = torch.softmax(s.masked_fill(~seen, float("-inf")), -1)
+    del s, seen
+    c = 2 ** -9 * (do.abs() * o.float().abs()).sum(-1).transpose(1, 2)
+    scale = 2.0 / hd ** 0.5
+    return {"dq": scale * c.transpose(1, 2)[..., None]
+            * torch.einsum("bhqk,bkhd->bqhd", p, k.abs()),
+            "dk": scale * torch.einsum("bhqk,bhq,bqhd->bkhd", p, c,
+                                       q.abs())}
 
 
 def check_flash(case, window, dropout, seed, dtype, **kw):
     """Kernels against the plain version on one case: (errs, share)."""
     got = flash_kernels(*case, window, dropout, seed, **kw)
     want = flash_plain(*case, window, dropout, seed, **kw)
-    slack = None
+    slack = grad_slack = None
     if kw.get("bias") is not None and dtype == torch.bfloat16:
         slack = dbias_slack(*case, got[0], kw.get("causal", True),
-                            kw["bias"], kw.get("kv_mask"), window)
+                            kw["bias"], kw.get("kv_mask"), window,
+                            kw.get("q_start"))
+    if kw.get("q_start") is not None and dtype == torch.bfloat16:
+        grad_slack = delta_slack(*case, got[0], kw.get("bias"),
+                                 kw.get("kv_mask"), window, kw["q_start"])
     torch.cuda.synchronize()
-    return flash_errors(got, want, dtype, slack)
+    return flash_errors(got, want, dtype, slack, grad_slack)
 
 
 def phase_flash_kernel(seed):
@@ -1076,7 +1160,11 @@ def phase_flash_edges(seed):
     (B*H 1 and 3), the T5 decoder's T 114 with a bias, and a batch row
     whose keys are all masked; at hd 64 and 128, under FLASH_TOL (dbias
     under DBIAS_TOL and its bf16 slack).  Then K3 with dbias twice at the
-    T5 encoder's shape: dk, dv and dbias must be the same bits."""
+    T5 encoder's shape: dk, dv and dbias must be the same bits.  Then the
+    packed rows' edges (q_start): document boundaries inside tiles the
+    causal rule alone calls interior, one-token documents, a window, a
+    bias (K4), a key mask over a document's every key; one document a row
+    against no q_start, bit for bit; and the Qwen3 path's shape."""
     rng = np.random.default_rng(seed + 12)
     cases = []
     for T in (127, 129, 200, 1000):
@@ -1110,13 +1198,59 @@ def phase_flash_edges(seed):
                      f"{FLASH_TOL[torch.bfloat16]}")
             n_cases += 1
     same = flash_determinism(rng)
+    # packed rows on the tensor-core kernels: document boundaries inside
+    # tiles the causal rule alone calls interior, one-token documents,
+    # T no multiple of the tiles, a window, a bias (K4) and a key mask
+    # over one document's keys; one document a row must give the same bits
+    # as no q_start; and the Qwen3 path's own shape (B 4, T 4096, H 16,
+    # hd 128, its packed documents)
+    packed_cases = (
+        [dict(B=1, H=3, T=T, kind=kind) for T in (200, 1000)
+         for kind in ("interior", "ones")]
+        + [dict(B=3, H=1, T=T, kind="docs") for T in (127, 129, 200, 1000)]
+        + [dict(B=1, H=3, T=1000, kind="interior", window=129),
+           dict(B=2, H=2, T=129, kind="interior", bias=True),
+           dict(B=2, H=2, T=1000, kind="docs", bias=True, dropout=0.1),
+           dict(B=2, H=2, T=1000, kind="interior", mask="doc")])
+    packed, packed_share, cut, single = {}, 0.0, 0, {}
+    for hd in (64, 128):
+        errs, share, n = packed_flash_cases(rng, packed_cases,
+                                            torch.bfloat16, hd)
+        packed_share, cut = max(packed_share, share), cut + n
+        for n_, e in errs.items():
+            packed[n_] = max(packed.get(n_, 0.0), e)
+        single[hd] = single_document_bits(rng, 2, 1000, 2, hd,
+                                          torch.bfloat16)
+    q = dict(QWEN3, **QWEN3_TRAFFIC)
+    qcase = flash_case(rng, q["B"], q["T"], q["n_heads"], q["head_dim"],
+                       torch.bfloat16)
+    qs = torch.from_numpy(qwen3_starts(qwen3_rows(rng, q["B"])[0])).cuda()
+    main_errs, main_share = check_flash(qcase, 0, 0.0, 0, torch.bfloat16,
+                                        q_start=qs)
+    del qcase
+    if not main_share <= 1.0:
+        fail(f"flash kernels at the Qwen3 packed shape: max|err| "
+             f"{main_errs}")
+    for n_, e in main_errs.items():
+        packed[n_] = max(packed.get(n_, 0.0), e)
     emit({"phase": "kernel",
           "kernel": "flash_attention bf16 edges (K1, K2, K3 wgmma+TMA; "
                     "dbias folded into K3)",
           "cases": n_cases, "max_abs_err": worst,
           "tol_atol_rtol": FLASH_TOL[torch.bfloat16],
           "worst_share_of_tol": worst_share,
-          "determinism": same})
+          "determinism": same,
+          "q_start_cases": 2 * len(packed_cases) + 1,
+          "q_start_max_abs_err": packed,
+          "q_start_worst_share_of_tol": max(packed_share, main_share),
+          "q_start_interior_tiles_cut": cut,
+          "q_start_single_document_same_bits": single,
+          "qwen3_packed_shape": {"B": q["B"], "T": q["T"],
+                                 "H": q["n_heads"], "hd": q["head_dim"],
+                                 "max_abs_err": main_errs,
+                                 "share_of_tol": main_share}})
+    for n_ in ("o", "lse", "dq", "dk", "dv", "dbias"):
+        worst[n_] = max(worst[n_], packed.get(n_, 0.0))
     return {"flash_fwd": max(worst["o"], worst["lse"]),
             "flash_bwd_dq": worst["dq"],
             "flash_bwd_dkv": max(worst["dk"], worst["dv"]),
@@ -1169,9 +1303,153 @@ def flash_option_case(rng, B, T, H, hd, dtype, bias, mask):
     return case, b, m
 
 
+def doc_lengths(rng, T, kind):
+    """Document lengths filling one packed row of T tokens: "docs" random
+    (a quarter one-token documents, the rest 2-40 or up to T/3 tokens),
+    "interior" boundaries at 70, 150, 151, 152, 153, 213 (inside key tiles
+    the causal rule alone calls interior for the query tiles at 128 and
+    192), then random; "ones" one-token documents over the first half;
+    "single" one document."""
+    if kind == "single":
+        return [T]
+    head = {"interior": [70, 80, 1, 1, 1, 60], "ones": [1] * (T // 2)}
+    lengths, total = [], 0
+    for n in head.get(kind, []):
+        lengths.append(min(n, T - total))
+        total += lengths[-1]
+        if total == T:
+            return lengths
+    while total < T:
+        n = int(rng.choice(
+            [1, rng.integers(2, 41), rng.integers(2, max(3, T // 3))],
+            p=[0.25, 0.5, 0.25]))
+        lengths.append(min(n, T - total))
+        total += lengths[-1]
+    return lengths
+
+
+def packed_starts(rng, B, T, kind):
+    """(B, T) int32 document starts (q_start) on the card, each row packed
+    by doc_lengths."""
+    rows = []
+    for _ in range(B):
+        lengths = doc_lengths(rng, T, kind)
+        rows.append(np.repeat(np.cumsum([0] + lengths[:-1]), lengths))
+    return torch.from_numpy(np.stack(rows).astype(np.int32)).cuda()
+
+
+def cut_interior_tiles(q_start, tile=64):
+    """How many (64-row query tile, 64-key tile) pairs that causal position
+    alone calls interior (every key at or before every query) hold a pair
+    that q_start masks: the tiles an interior skip must not skip."""
+    qs = q_start.cpu().numpy()
+    B, T = qs.shape
+    n = 0
+    for i in range(T // tile):
+        hi = qs[:, i * tile:(i + 1) * tile].max(1)        # per batch row
+        for j in range(i):                               # k0 + 63 < q0
+            n += int((hi > j * tile).sum())
+    return n
+
+
+def doc_kv_mask(q_start):
+    """A (B, T) key mask that masks every key of one document per row (its
+    rows attend uniformly over its keys) and one more key at random."""
+    qs = q_start.cpu().numpy()
+    m = np.ones(qs.shape, bool)
+    for b in range(qs.shape[0]):
+        starts = np.unique(qs[b])
+        s = starts[len(starts) // 2]
+        m[b, qs[b] == s] = False
+        m[b, (s * 7 + 3) % qs.shape[1]] = False
+    return torch.from_numpy(m).cuda()
+
+
+def packed_flash_cases(rng, cases, dtype, hd):
+    """Each case (a dict: B, T, H, kind, and bias, mask "doc" / "ragged",
+    window, dropout) through check_flash with q_start: ({name: worst
+    |err|}, worst share, interior tiles cut)."""
+    worst, worst_share, cut = {}, 0.0, 0
+    for c in cases:
+        case, b, _ = flash_option_case(rng, c["B"], c["T"], c["H"], hd,
+                                       dtype, c.get("bias", False), None)
+        qs = packed_starts(rng, c["B"], c["T"], c["kind"])
+        m = {None: None, "doc": doc_kv_mask(qs)}.get(c.get("mask"))
+        cut += cut_interior_tiles(qs)
+        errs, share = check_flash(case, c.get("window", 0),
+                                  c.get("dropout", 0.0),
+                                  int(rng.integers(-2 ** 31, 2 ** 31)),
+                                  dtype, bias=b, kv_mask=m, q_start=qs)
+        worst_share = max(worst_share, share)
+        for n, e in errs.items():
+            worst[n] = max(worst.get(n, 0.0), e)
+        if not share <= 1.0:
+            fail(f"flash kernels with q_start {dtype} hd={hd} {c}: "
+                 f"max|err| {errs} past tolerance")
+    return worst, worst_share, cut
+
+
+def single_document_bits(rng, B, T, H, hd, dtype):
+    """K1-K3 with q_start all 0 (one document a row) against no q_start on
+    the same inputs: o, lse, dq, dk, dv must be the same bits."""
+    case = flash_case(rng, B, T, H, hd, dtype)
+    zeros = torch.zeros(B, T, dtype=torch.int32, device="cuda")
+    one = flash_kernels(*case, 0, 0.0, 0, q_start=zeros)
+    plain = flash_kernels(*case, 0, 0.0, 0)
+    torch.cuda.synchronize()
+    same = {n: torch.equal(a, b)
+            for n, a, b in zip(("o", "lse", "dq", "dk", "dv"), one, plain)}
+    if not all(same.values()):
+        fail(f"q_start of one document changed the bits ({dtype} hd={hd} "
+             f"T={T}): equal {same}")
+    return same
+
+
+def check_sink(rng, B, T, H, hd, dtype, causal=True, q_start=None):
+    """The sink through flash_attention's autograd Function on the card (K1
+    with the sink, K2, K3, dsink from the residuals) against autograd of
+    the plain version in float32: o, dq, dk, dv under FLASH_TOL, and dsink
+    within 1e-4 of the sum of its terms' sizes, sum |p_sink * delta|, plus
+    for bf16 the delta slack of DBIAS_TOL, 2 * sum p_sink * c."""
+    from neuralnetworklibrary_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        reference_flash_attention,
+    )
+
+    q, k, v, do = flash_case(rng, B, T, H, hd, dtype)
+    sink = torch.from_numpy(rng.standard_normal(H, dtype=np.float32)
+                            * 2).cuda()
+    xs = [t.detach().requires_grad_() for t in (q, k, v)]
+    s = sink.clone().requires_grad_()
+    o = flash_attention(*xs, causal=causal, sink=s, q_start=q_start)
+    got = (o,) + torch.autograd.grad(o, xs + [s], do)
+    xf = [t.float().requires_grad_() for t in (q, k, v)]
+    sf = sink.clone().requires_grad_()
+    o2, lse = reference_flash_attention(*xf, hd ** -0.5, causal=causal,
+                                        sink=sf, q_start=q_start,
+                                        return_lse=True)
+    want = (o2,) + torch.autograd.grad(o2, xf + [sf], do.float())
+    errs, share = tol_share(got[:4], want[:4], FLASH_TOL[dtype],
+                            ("o", "dq", "dk", "dv"))
+    p_sink = torch.exp(sink[None, :, None] - lse.detach())      # (B, H, T)
+    delta = (do.float() * o2.detach()).sum(-1).transpose(1, 2)
+    room = 1e-4 * float((p_sink * delta.abs()).sum((0, 2)).max())
+    if dtype == torch.bfloat16:
+        c = 2 ** -9 * (do.float().abs() * o.detach().float().abs()).sum(-1)
+        room += 2 * float((p_sink * c.transpose(1, 2)).sum((0, 2)).max())
+    errs["dsink"] = float((got[4] - want[4]).abs().max())
+    share = max(share, errs["dsink"] / room)
+    torch.cuda.synchronize()
+    if not share <= 1.0:
+        fail(f"flash kernels with a sink {dtype} hd={hd} T={T} "
+             f"causal={causal}: max|err| {errs} (dsink room {room})")
+    return errs, share
+
 def phase_flash_options(seed):
-    """K1-K4 with the options the T5 path takes, against the plain
-    version; returns the worst errors at the T5 path's own two shapes."""
+    """K1-K4 with the options the T5 path takes, then packed rows (q_start
+    with every option) and K1's sink, against the plain version; returns
+    the worst errors at the T5 path's own two shapes and of the bf16
+    packed and sink cases."""
     rng = np.random.default_rng(seed + 9)
     worst, worst_share, n_cases = {}, 0.0, 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -1218,19 +1496,54 @@ def phase_flash_options(seed):
         if not share <= 1.0:
             fail(f"flash kernels at the T5 {name} shape: max|err| {errs}")
         main[name] = {"max_abs_err": errs, "share_of_tol": share}
+    # packed rows: q_start with every option, float32 and bf16, hd 64 and
+    # 128, random documents (a quarter one token long), a key mask that
+    # masks one document's every key; and K1's sink, causal, bidirectional
+    # and with q_start, its gradient against autograd of the plain version
+    packed, sinks, n_packed, cut = {}, {}, 0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        key = str(dtype).replace("torch.", "")
+        for hd in (64, 128):
+            cases = [dict(B=2, T=T, H=2, kind="docs", bias=bias, mask=mask,
+                          window=window, dropout=dropout)
+                     for T in (512, 114) for bias in (False, True)
+                     for mask in (None, "doc") for window in (0, 100)
+                     for dropout in (0.0, 0.1)]
+            errs, share, n = packed_flash_cases(rng, cases, dtype, hd)
+            worst_share = max(worst_share, share)
+            n_packed += len(cases)
+            cut += n
+            w = packed.setdefault(key, {})
+            for n_, e in errs.items():
+                w[n_] = max(w.get(n_, 0.0), e)
+            for T, causal, docs in ((512, True, False), (200, False, False),
+                                    (512, True, True)):
+                qs = packed_starts(rng, 2, T, "docs") if docs else None
+                errs, share = check_sink(rng, 2, T, 4, hd, dtype, causal,
+                                         qs)
+                worst_share = max(worst_share, share)
+                w = sinks.setdefault(key, {})
+                for n_, e in errs.items():
+                    w[n_] = max(w.get(n_, 0.0), e)
     emit({"phase": "kernel",
           "kernel": "flash_attention options (fwd, dq, dkv, dbias)",
           "cases": n_cases, "max_abs_err": worst,
+          "q_start_cases": n_packed, "q_start_max_abs_err": packed,
+          "q_start_interior_tiles_cut": cut,
+          "sink_cases": 12, "sink_max_abs_err": sinks,
+          "dsink_tol": "1e-4 x sum |p_sink delta| (+ bf16 2 sum p_sink c)",
           "tol_atol_rtol": {str(d).replace("torch.", ""): t
                             for d, t in FLASH_TOL.items()},
           "dbias_tol_max_rel_rtol": {str(d).replace("torch.", ""): t
                                      for d, t in DBIAS_TOL.items()},
           "dbias_bf16_slack": "2 * sum_b P_b * 2**-9 * sum_d |dO||o|",
           "worst_share_of_tol": worst_share, "t5_shapes": main})
-    errs = [main[n]["max_abs_err"] for n in main]
-    return {"flash_fwd": max(max(e["o"], e["lse"]) for e in errs),
-            "flash_bwd_dq": max(e["dq"] for e in errs),
-            "flash_bwd_dkv": max(max(e["dk"], e["dv"]) for e in errs),
+    errs = [main[n]["max_abs_err"] for n in main] + [packed["bfloat16"]]
+    sk = sinks["bfloat16"]
+    return {"flash_fwd": max(max(e["o"], e.get("lse", 0.0))
+                             for e in errs + [sk]),
+            "flash_bwd_dq": max(e["dq"] for e in errs + [sk]),
+            "flash_bwd_dkv": max(max(e["dk"], e["dv"]) for e in errs + [sk]),
             "flash_bwd_dbias": max(e["dbias"] for e in errs)}
 
 
@@ -1569,8 +1882,9 @@ def phase_auto_flash(seed):
     card.  The default TransformerLM (d_model 256, 8 heads: hd 32, which
     the kernels do not take) trains one bf16 step through the Learner on
     its einsum path and launches no flash kernel; at 4 heads (hd 64) the
-    same model takes the flash path (K1-K3 once per layer); a sinks=True
-    model runs einsum; flash_attention=True at hd 32 raises."""
+    same model takes the flash path (K1-K3 once per layer), and so do a
+    sinks=True model (K1 with its sink) and a packed one (reset_at, K1-K3
+    with q_start); flash_attention=True at hd 32 raises."""
     import tempfile
     import types
 
@@ -1595,7 +1909,9 @@ def phase_auto_flash(seed):
     batch = data.train_dl.peek()
     counted = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
     out = {}
-    for name, kw in (("default_hd32", {}), ("hd64", dict(n_heads=4))):
+    for name, kw in (("default_hd32", {}), ("hd64", dict(n_heads=4)),
+                     ("sinks_hd64", dict(n_heads=4, sinks=True)),
+                     ("packed_hd64", dict(n_heads=4, reset_at=0))):
         torch.manual_seed(seed)
         model = TransformerLM(vocab_size=V, **kw)
         with tempfile.TemporaryDirectory() as tmp:
@@ -1615,16 +1931,10 @@ def phase_auto_flash(seed):
                  f"{loss}, flash launches {launches} != {want}")
         out[name] = {"head_dim": model.head_dim, "flash": flash,
                      "loss": loss, "kernel_launches": launches}
-    if out["default_hd32"]["flash"] or not out["hd64"]["flash"]:
+    if out["default_hd32"]["flash"] or not all(
+            out[n]["flash"] for n in ("hd64", "sinks_hd64", "packed_hd64")):
         fail(f"auto flash picked {out}")
     x = torch.from_numpy(xs[:2, :T]).long().cuda()
-    sinks = TransformerLM(vocab_size=V, n_heads=4, sinks=True)
-    with torch.no_grad():
-        logits, _ = sinks(x)
-    out["sinks_hd64"] = {"flash": sinks.uses_flash("cuda"),
-                         "finite": bool(torch.isfinite(logits).all())}
-    if out["sinks_hd64"] != {"flash": False, "finite": True}:
-        fail(f"auto flash with sinks: {out['sinks_hd64']}")
     forced = TransformerLM(vocab_size=V, flash_attention=True)
     try:
         with torch.no_grad():
@@ -1639,17 +1949,20 @@ def phase_auto_flash(seed):
     return out
 
 
-def flash_bound(B, T, H, hd, kind, causal=True, bias=False, mask=False):
+def flash_bound(B, T, H, hd, kind, causal=True, bias=False, mask=False,
+                pairs=None, extra=0):
     """Least time of one call at this shape: the bytes it must move (each
     input read once, each output written once) over HBM bandwidth, against
     its tensor-core flops at the bf16 peak.  Pairs are the causal (query,
-    key) pairs, or all T*T when bidirectional; a bias adds its (H, T, T)
-    float32 read (and K4 its dbias write), a key mask its (B, T) float32
-    read.  Returns (ms, by)."""
+    key) pairs, or all T*T when bidirectional, or ``pairs`` (the attended
+    pairs of packed rows); a bias adds its (H, T, T) float32 read (and K4
+    its dbias write), a key mask its (B, T) float32 read, and ``extra``
+    bytes more (q_start's (B, T) int32).  Returns (ms, by)."""
     elem = B * T * H * hd * 2             # one bf16 (B, T, H, hd) tensor
     vec = B * H * T * 4                   # one float32 lse / delta row set
-    pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
-    extra = (H * T * T * 4 if bias else 0) + (B * T * 4 if mask else 0)
+    if pairs is None:
+        pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
+    extra += (H * T * T * 4 if bias else 0) + (B * T * 4 if mask else 0)
     nbytes, flops = {
         "flash_fwd": (4 * elem + vec, 4 * hd * pairs),
         "flash_bwd_dq": (5 * elem + 2 * vec, 6 * hd * pairs),
@@ -4252,6 +4565,382 @@ def phase_detection(seed, profile=False):
     detection_bench(seed, profile)
 
 
+# ----------------------------------------------------- packed Qwen3-0.6B
+
+
+def qwen3_state_dict(seed, n_layers):
+    """An HF Qwen3ForCausalLM state dict (tied, so no lm_head) with random
+    weights from ``seed``, on the card: matrices normal(0, 0.02) (HF's
+    initializer_range), norm scales 1."""
+    c = QWEN3
+    D, H, Hkv, hd, F_ = (c["d_model"], c["n_heads"], c["n_kv_heads"],
+                         c["head_dim"], c["d_ff"])
+    g = torch.Generator("cuda").manual_seed(seed)
+
+    def normal(*shape):
+        return torch.empty(shape, device="cuda").normal_(0, 0.02,
+                                                         generator=g)
+
+    def ones(n):
+        return torch.ones(n, device="cuda")
+
+    sd = {"model.embed_tokens.weight": normal(c["vocab_size"], D),
+          "model.norm.weight": ones(D)}
+    for i in range(n_layers):
+        p = f"model.layers.{i}."
+        sd.update({p + "self_attn.q_proj.weight": normal(H * hd, D),
+                   p + "self_attn.k_proj.weight": normal(Hkv * hd, D),
+                   p + "self_attn.v_proj.weight": normal(Hkv * hd, D),
+                   p + "self_attn.o_proj.weight": normal(D, H * hd),
+                   p + "self_attn.q_norm.weight": ones(hd),
+                   p + "self_attn.k_norm.weight": ones(hd),
+                   p + "mlp.gate_proj.weight": normal(F_, D),
+                   p + "mlp.up_proj.weight": normal(F_, D),
+                   p + "mlp.down_proj.weight": normal(D, F_),
+                   p + "input_layernorm.weight": ones(D),
+                   p + "post_attention_layernorm.weight": ones(D)})
+    return sd
+
+
+def qwen3_model(seed, n_layers, **kw):
+    """Qwen3-0.6B's widths at ``n_layers`` through the port's load_qwen3
+    (the converter a user calls), packed rows on (reset_at = eos)."""
+    from neuralnetworklibrary_tpu_torch.utils.llama_convert import (
+        load_qwen3,
+    )
+
+    c, t = QWEN3, QWEN3_TRAFFIC
+    arch = {k: c[k] for k in ("n_heads", "d_model", "vocab_size",
+                              "head_dim", "n_kv_heads", "d_ff", "rope_base",
+                              "norm_eps")}
+    model, _ = load_qwen3(qwen3_state_dict(seed, n_layers), n_layers,
+                          max_len=t["T"], reset_at=t["eos"], device="cuda",
+                          **arch, **kw)
+    return model
+
+
+def qwen3_rows(rng, n_rows):
+    """(x, y) packed rows (n_rows, T) int32 of synthetic documents:
+    log-normal lengths (median 512, sigma 1.0, clipped to [8, 4095]) of
+    tokens drawn Zipf-like (rank r with weight 1 / (r + 1)**1.1, ranks on
+    a random permutation of the ids below the eos), each closed by the
+    eos, packed first-fit-decreasing by data.packing.pack_documents, pad
+    a dedicated id; the rows shuffled."""
+    from neuralnetworklibrary_tpu_torch.data.packing import pack_documents
+
+    t = QWEN3_TRAFFIC
+    ids = rng.permutation(t["eos"])
+    w = 1.0 / np.arange(1, t["eos"] + 1) ** 1.1
+    cdf = np.cumsum(w / w.sum())
+    need = n_rows * t["T"]
+    lengths = []
+    while sum(lengths) < 1.05 * need:
+        lengths.append(int(np.clip(np.exp(np.log(t["median"])
+                                          + t["sigma"] * rng.normal()),
+                                   t["min_len"], t["max_len"])))
+    tokens = ids[np.minimum(np.searchsorted(cdf, rng.random(sum(lengths))),
+                            t["eos"] - 1)]
+    docs = np.split(tokens, np.cumsum(lengths)[:-1])
+    x, y, _ = pack_documents(docs, t["T"], t["eos"], pad_token=t["pad"])
+    if len(x) < n_rows:
+        fail(f"qwen3 data: {len(x)} packed rows < {n_rows}")
+    order = rng.permutation(len(x))[:n_rows]
+    return x[order], y[order]
+
+
+def qwen3_starts(x):
+    """(B, T) int32 document starts of packed rows (each segment starts
+    right after an eos), as TransformerLM(reset_at=eos) derives them."""
+    sep = np.zeros(x.shape, bool)
+    sep[:, 1:] = x[:, :-1] == QWEN3_TRAFFIC["eos"]
+    idx = np.arange(x.shape[1])
+    return np.maximum.accumulate(np.where(sep, idx, 0), axis=1).astype(
+        np.int32)
+
+
+def qwen3_f32_checks(seed, x, y):
+    """(a) the 2-layer copy at full width, float32: flash path against
+    einsum path on two packed rows (loss and every gradient), and each
+    of three documents of row 0 alone against its place in the row."""
+    from neuralnetworklibrary_tpu_torch.nn.transformer import (
+        PackedSeqCrossEntropyLoss,
+    )
+
+    t = QWEN3_TRAFFIC
+    model = qwen3_model(seed, 2, flash_attention=True)
+    loss_fn = PackedSeqCrossEntropyLoss(t["pad"])
+    xb = torch.from_numpy(x[:2]).long().cuda()
+    yb = torch.from_numpy(y[:2]).long().cuda()
+    res = []
+    for flash in (True, False):
+        model.flash_attention = flash
+        model.zero_grad(set_to_none=True)
+        loss = loss_fn(model(xb, train=True), yb)
+        loss.backward()
+        res.append((float(loss.detach()), {n: p.grad.clone()
+                                           for n, p in model.named_parameters()}))
+    model.flash_attention = True
+    model.zero_grad(set_to_none=True)
+    loss_err = abs(res[0][0] - res[1][0])
+    g_max = max(float(g.abs().max()) for g in res[1][1].values())
+    g_err = max(float((res[0][1][n] - g).abs().max())
+                for n, g in res[1][1].items())
+    del res
+    if not (np.isfinite(loss_err) and loss_err <= 1e-4):
+        fail(f"qwen3 f32 flash vs einsum loss: |err| {loss_err} > 1e-4")
+    if not g_err <= 1e-3 * g_max:
+        fail(f"qwen3 f32 flash vs einsum grads: max|err| {g_err} > 1e-3 x "
+             f"max|grad| {g_max}")
+    # packed against standalone: the first document, one in the middle
+    # and the last real one (a one-token document where there is one)
+    starts = qwen3_starts(x[:1])[0]
+    real = int((x[0] != t["pad"]).sum())
+    bounds = sorted(set(starts[:real].tolist()))
+    ends = bounds[1:] + [real]
+    single = [i for i in range(len(bounds)) if ends[i] - bounds[i] == 1]
+    picks = sorted({0, len(bounds) // 2, len(bounds) - 1,
+                    *(single[:1])})
+    with torch.no_grad():
+        packed = model(xb[:1])[0][0]
+        doc_err, scale = 0.0, float(packed.abs().max())
+        for i in picks:
+            s, e = bounds[i], ends[i]
+            alone = model(xb[:1, s:e])[0][0]
+            doc_err = max(doc_err, float((packed[s:e] - alone).abs().max()))
+    if not doc_err <= 1e-4 * max(1.0, scale):
+        fail(f"qwen3 packed vs standalone logits: max|err| {doc_err} > "
+             f"1e-4 x max|logit| {scale}")
+    del model
+    torch.cuda.empty_cache()
+    return {"f32_flash_vs_einsum_loss_abs_err": loss_err,
+            "f32_flash_vs_einsum_grad_max_abs_err": g_err,
+            "f32_grad_max_abs": g_max,
+            "f32_tol": "loss 1e-4, grads 1e-3 x max|grad|",
+            "packed_vs_standalone": {
+                "docs": [{"start": bounds[i], "len": ends[i] - bounds[i]}
+                         for i in picks],
+                "max_abs_err": doc_err, "max_abs_logit": scale,
+                "tol": "1e-4 x max(1, max|logit|)"}}
+
+
+def phase_qwen3(seed, profile=False):
+    """Packed Qwen3-0.6B pretraining (HF Qwen/Qwen3-0.6B config.json
+    widths, random weights through load_qwen3): (a) qwen3_f32_checks; (b)
+    the full 28 layers, bf16, B 4 x T 4096 packed rows through the
+    Learner (ArrayDataset / DataLoader, PackedSeqCrossEntropyLoss of the
+    pad id, Adam2), 10 steps on successive batches, then evaluate over 2
+    batches, with exact K1-K3 launches; (c) the same model with
+    fused_ce=True: its chunked CE against the materialised CE on one
+    batch, then 3 steps with FusedSeqCrossEntropyLoss, and both peak
+    memories."""
+    import tempfile
+    import types
+
+    from neuralnetworklibrary_tpu_torch.data.loader import (
+        ArrayDataset,
+        DataLoader,
+    )
+    from neuralnetworklibrary_tpu_torch.learner import Learner
+    from neuralnetworklibrary_tpu_torch.nn.transformer import (
+        FusedSeqCrossEntropyLoss,
+        PackedSeqCrossEntropyLoss,
+    )
+    from neuralnetworklibrary_tpu_torch.ops import flash_attention as fa
+    from neuralnetworklibrary_tpu_torch.ops.chunked_ce import (
+        chunked_softmax_ce,
+        dense_softmax_ce,
+    )
+
+    c, t = QWEN3, QWEN3_TRAFFIC
+    B, L, T = t["B"], c["n_layers"], t["T"]
+    rng = np.random.default_rng(seed + 31)
+    n_train, n_val = B * t["steps"], B * t["eval_batches"]
+    x, y = qwen3_rows(rng, n_train + n_val)
+    checks = qwen3_f32_checks(seed, x, y)
+
+    t0 = time.perf_counter()
+    model = qwen3_model(seed, L, flash_attention=True)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    data = types.SimpleNamespace(
+        target_type="lang_model", bs=B,
+        train_dl=DataLoader(ArrayDataset(x[:n_train], y[:n_train]), B,
+                            prefetch=0),
+        val_dl=DataLoader(ArrayDataset(x[n_train:], y[n_train:]), B,
+                          prefetch=0))
+    counted = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        learner = Learner(tmp, data, model, "Adam2",
+                          loss_func=PackedSeqCrossEntropyLoss(t["pad"]),
+                          seed=seed, compute_dtype="bfloat16")
+        learner.init_optimizer(wd=t["wd"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counted:
+            fn.launches = 0
+        losses, secs, real = [], [], []
+        for batch in data.train_dl:
+            t0 = time.perf_counter()
+            losses.append(learner.train1minibatch(batch, t["lr"]))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            real.append(int((batch.y != t["pad"]).sum()))
+        peak = torch.cuda.max_memory_allocated()
+        val_loss = learner.evaluate("val")[0]
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in counted}
+        if profile:
+            profile_step(lambda: learner.train1minibatch(batch, t["lr"]),
+                         "qwen3_profile", focus=("flash_",))
+        losses = [float(v) for v in losses]
+        want = {"flash_fwd": L * (t["steps"] + t["eval_batches"]),
+                "flash_bwd_dq": L * t["steps"],
+                "flash_bwd_dkv": L * t["steps"]}
+        if launches != want:
+            fail(f"qwen3 flash kernel launches {launches} != {want}")
+        if not (all(np.isfinite(losses)) and np.isfinite(val_loss)
+                and max(losses[-3:]) < losses[0]):
+            fail(f"qwen3 losses not finite and falling: {losses}, val "
+                 f"{val_loss}")
+        steady = statistics.median(secs[1:])
+        out["train"] = {
+            "losses": losses, "val_loss": val_loss,
+            "first_step_ms": secs[0] * 1e3,
+            "ms_per_step_median_2_to_10": steady * 1e3,
+            "tokens_per_s": B * T / steady,
+            "non_pad_tokens_per_s": statistics.median(
+                r / s for r, s in zip(real[1:], secs[1:])),
+            "non_pad_share": sum(real) / (len(real) * B * T),
+            "peak_memory_GB": peak / 1e9, "kernel_launches": launches}
+        del learner
+    torch.cuda.empty_cache()
+
+    # (c) fused CE: the chunked CE against the materialised one on a batch,
+    # then 3 steps through the Learner
+    model.fused_ce = True
+    batch = data.train_dl.peek()
+    xb = torch.from_numpy(batch.xs[0]).long().cuda()
+    yb = torch.from_numpy(batch.y).long().cuda()
+    with torch.no_grad():
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            h, head = model(xb)
+        fused = float(chunked_softmax_ce(h.float(), head.float(), yb))
+        dense = float(dense_softmax_ce(h.float(), head.float(), yb))
+        del h
+    if not abs(fused - dense) <= 1e-5 * abs(dense):
+        fail(f"qwen3 chunked CE {fused} vs materialised {dense}")
+    with tempfile.TemporaryDirectory() as tmp:
+        learner = Learner(tmp, data, model, "Adam2",
+                          loss_func=FusedSeqCrossEntropyLoss(), seed=seed,
+                          compute_dtype="bfloat16")
+        learner.init_optimizer(wd=t["wd"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        f_losses, f_secs = timed_steps(learner, batch, t["lr"],
+                                       t["fused_steps"])
+        f_peak = torch.cuda.max_memory_allocated()
+        del learner
+    model.fused_ce = False
+    if not all(np.isfinite(f_losses)):
+        fail(f"qwen3 fused CE losses {f_losses}")
+    out["fused_ce"] = {"chunk": 8192, "loss_on_batch": fused,
+                       "materialised_loss_on_batch": dense,
+                       "rel_err": abs(fused - dense) / abs(dense),
+                       "tol": "1e-5 relative", "losses": f_losses,
+                       "ms_per_step": [s * 1e3 for s in f_secs],
+                       "peak_memory_GB": f_peak / 1e9}
+    del model
+    torch.cuda.empty_cache()
+    emit({"phase": "qwen3",
+          "model": "Qwen3-0.6B (HF Qwen/Qwen3-0.6B config.json), random "
+                   "weights through load_qwen3", **c, "params": n_params,
+          "setup_s": setup_s, **checks,
+          "traffic": {k: t[k] for k in ("B", "T", "median", "sigma",
+                                        "min_len", "max_len", "eos", "pad",
+                                        "lr", "wd")},
+          "dtype": "bfloat16 (autocast)", "optimizer": "Adam2",
+          "steps": t["steps"], "eval_batches": t["eval_batches"], **out})
+    return launches
+
+
+def qwen3_flash_timing(seed):
+    """K1-K3 at the Qwen3 path's attention (bf16, B 4, T 4096, H 16 (the
+    8 kv heads expanded), hd 128, causal) with the q_start of its packed
+    rows, beside the plain version, the same kernels without q_start (the
+    whole causal triangle) and, as a yardstick the port never calls, SDPA
+    with its memory-efficient backend pinned and the block-diagonal causal
+    boolean mask.  The bound counts the attended pairs of these rows."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+
+    from neuralnetworklibrary_tpu_torch.ops.flash_attention import (
+        flash_bwd_dkv,
+        flash_bwd_dq,
+        flash_fwd,
+        reference_flash_attention,
+    )
+
+    c, t = QWEN3, QWEN3_TRAFFIC
+    B, T, H, hd = t["B"], t["T"], c["n_heads"], c["head_dim"]
+    rng = np.random.default_rng(seed + 32)
+    x, _ = qwen3_rows(rng, B)
+    starts = qwen3_starts(x)
+    qs = torch.from_numpy(starts).cuda()
+    pairs = H * int((np.arange(T)[None] - starts + 1).sum())
+    q, k, v, do = flash_case(rng, B, T, H, hd, torch.bfloat16)
+    scale = 1.0 / hd ** 0.5
+    timer = Timer()
+    rows = {}
+    for label, kw in (("packed", dict(qs=qs)), ("causal", {})):
+        o, lse = flash_fwd(q, k, v, scale, **kw)
+        delta = ((do.float() * o.float()).sum(-1).transpose(1, 2)
+                 .reshape(B * H, T).contiguous())
+        rows[label] = {
+            "flash_fwd": timer.stats(lambda: flash_fwd(q, k, v, scale,
+                                                       **kw)),
+            "flash_bwd_dq": timer.stats(lambda: flash_bwd_dq(
+                q, k, v, do, lse, delta, scale, **kw)),
+            "flash_bwd_dkv": timer.stats(lambda: flash_bwd_dkv(
+                q, k, v, do, lse, delta, scale, **kw))}
+    plain_fwd, plain_bwd, _ = sdpa_fwd_bwd(
+        timer, lambda a, b, cc: reference_flash_attention(
+            a, b, cc, scale, q_start=qs), (q, k, v), do, None)
+    pos = torch.arange(T, device="cuda")
+    mask = ((pos[None, :, None] >= pos[None, None, :])
+            & (pos[None, None, :] >= qs.long()[:, :, None]))[:, None]
+    lib_fwd, lib_bwd, lib_check = sdpa_fwd_bwd(
+        timer, lambda a, b, cc: F.scaled_dot_product_attention(
+            a.transpose(1, 2), b.transpose(1, 2), cc.transpose(1, 2),
+            attn_mask=mask).transpose(1, 2),
+        (q, k, v), do, SDPBackend.EFFICIENT_ATTENTION)
+    out = {}
+    for name, st in rows["packed"].items():
+        fwd = name == "flash_fwd"
+        out[name] = timed_row(st, plain_fwd if fwd else plain_bwd,
+                              lib_fwd if fwd else lib_bwd,
+                              flash_bound(B, T, H, hd, name, pairs=pairs,
+                                          extra=B * T * 4))
+        out[name]["causal_without_q_start_ms"] = rows["causal"][name]["ms"]
+        emit({"phase": "timing", "kernel": name, "shape": "qwen3_packed",
+              "B": B, "T": T, "H": H, "hd": hd, "dtype": "bfloat16",
+              "causal": True, "q_start": "packed rows of qwen3_rows",
+              "attended_pairs": pairs,
+              "pairs_share_of_causal": pairs / (B * H * T * (T + 1) / 2),
+              "design": FLASH_DESIGN[name], **out[name],
+              "plain": "reference_flash_attention(q_start=) in bf16"
+                       + ("" if fwd else ": its backward, dq dk dv together"),
+              "library": "F.scaled_dot_product_attention(attn_mask= the "
+                         "block-diagonal causal bool mask), backend "
+                         "EFFICIENT_ATTENTION, "
+                         + ("forward" if fwd else
+                            "backward, dq dk dv together")
+                         + " (yardstick only)",
+              **({} if fwd else {"library_bwd_check": lib_check}),
+              "share_of_bound": out[name]["bound_ms"] / out[name]["ms"]})
+    return out
+
 def tc_smem_bytes(hd, tile, stages, n_stationary):
     """Shared memory of a tensor-core flash kernel (TcSmem in the source)."""
     halves = hd // 64
@@ -4261,12 +4950,13 @@ def tc_smem_bytes(hd, tile, stages, n_stationary):
 
 def dkv_smem_bytes(hd, q_tile, groups, stages, opt):
     """Shared memory of the tensor-core K3 (DkvSmem in the source): k and v
-    of 64 * groups rows, the ring of q and dO tiles, each stage's lse and
-    delta and, with the options, its float32 bias tile."""
+    of 64 * groups rows, the ring of q and dO tiles, each stage's lse,
+    delta and document starts and, with the options, its float32 bias
+    tile."""
     halves, rows = hd // 64, 64 * groups
     ring = 2 * halves * rows * 128 + stages * 2 * halves * q_tile * 128
     bias = stages * q_tile * rows * 4 if opt else 0
-    return ring + bias + stages * 2 * q_tile * 4 + 8 * (1 + 3 * stages) + 1024
+    return ring + bias + stages * 3 * q_tile * 4 + 8 * (1 + 3 * stages) + 1024
 
 
 SMEM_LIMIT = 232448               # bytes a block may use (227 KB)
@@ -4455,11 +5145,13 @@ def main():
     phase_collab(args.seed, args.profile)
     phase_structured(args.seed, args.profile)
     phase_detection(args.seed, args.profile)
+    qwen3_launches = phase_qwen3(args.seed, args.profile)
     k5_rows = phase_timing(args.seed)
     flash_t = phase_flash_timing(args.seed)
     lstm_t = phase_lstm_timing(args.seed)
     t5_t = phase_t5_timing(args.seed)
     vit_t = phase_vit_timing(args.seed)
+    qwen3_t = qwen3_flash_timing(args.seed)
     if args.tile_sweep:
         phase_paged_sweep(args.seed)
         phase_tile_sweep(args.seed)
@@ -4479,13 +5171,14 @@ def main():
         "by_shape": {label: {k: r[k] for k in ("splits", *TIMED_KEYS,
                                                "library_full_strip_ms")}
                      for label, r in k5_rows.items()}}]
-    # K1-K3: the numbers at the GPT-2 train shape, and at the T5 encoder's
-    # and the ViT's beside them; launches over the three training paths.
-    # K4 runs on the T5 path alone.
+    # K1-K3: the numbers at the GPT-2 train shape, and at the T5 encoder's,
+    # the ViT's and the packed Qwen3 path's beside them; launches over the
+    # four training paths.  K4 runs on the T5 path alone.
     for name in FLASH_KERNELS:
         by_path = {"train": flash_launches.get(name, 0),
                    "t5": t5_launches[name],
-                   "vit": vit_launches.get(name, 0)}
+                   "vit": vit_launches.get(name, 0),
+                   "qwen3": qwen3_launches.get(name, 0)}
         dbias = name == "flash_bwd_dbias"
         row = t5_t[name] if dbias else flash_t[name]
         tol = (DBIAS_TOL if dbias else FLASH_TOL)[torch.bfloat16]
@@ -4503,7 +5196,8 @@ def main():
                     if dbias else "atol %g + rtol %g") % tol,
             "shape": "t5_encoder" if dbias else "gpt2_train", **row,
             **({} if dbias else {"t5_encoder": t5_t[name],
-                                 "vit": vit_t[name]})})
+                                 "vit": vit_t[name],
+                                 "qwen3_packed": qwen3_t[name]})})
     for name, row in lstm_t.items():
         kind = name.split("_")[1]
         by_path = {"lm": lstm_launches[name],

@@ -37,8 +37,9 @@ generator on the input's device, seeded per forward by an int drawn from
 the ``generator`` given (the Learner's seeded CPU generator), else from
 torch's default one (the classifier head's ``F.dropout`` draws from
 torch's default one); so they are statistically, not bitwise, the JAX
-model's.  Not ported yet: ``FusedRegSeqCrossEntropyLoss`` (ROADMAP
-Queue 1).
+model's.  ``LanguageModelNet(fused_ce=True)`` with
+:class:`FusedRegSeqCrossEntropyLoss` streams the vocabulary through
+``ops.chunked_ce`` instead of building the logits.
 """
 
 from __future__ import annotations
@@ -67,11 +68,13 @@ from neuralnetworklibrary_tpu_torch.nn.layers import (
     keep_mask,
     linear,
 )
-from neuralnetworklibrary_tpu_torch.nn.transformer import resolve_device
+from neuralnetworklibrary_tpu_torch.nn.transformer import (
+    resolve_device,
+    token_mask,
+)
+from neuralnetworklibrary_tpu_torch.ops.chunked_ce import chunked_softmax_ce
 from neuralnetworklibrary_tpu_torch.ops.lstm_scan import lstm_scan
 from neuralnetworklibrary_tpu_torch.utils.torch_convert import _np
-
-_TODO = "is not ported yet (ROADMAP Queue 1)"
 
 
 def correct_foldername(p: str) -> str:
@@ -691,9 +694,11 @@ class LanguageModelDecoder(nn.Module):
         self.drop = drop
 
     def forward(self, enc_out, tied_weight, train: bool = False,
-                generator=None):
-        return F.linear(locked_dropout(enc_out, self.drop, train, generator),
-                        tied_weight)
+                generator=None, return_hidden: bool = False):
+        """``return_hidden``: the (dropped) decoder input instead of the
+        logits, for the chunked CE (same dropout as the logits path)."""
+        h = locked_dropout(enc_out, self.drop, train, generator)
+        return h if return_hidden else F.linear(h, tied_weight)
 
 
 class LanguageModelNet(_LSTMKernelSwitch, nn.Module):
@@ -704,9 +709,10 @@ class LanguageModelNet(_LSTMKernelSwitch, nn.Module):
     Learner: [lstms, word_embed (= head, the tied decoder)].  Dropout rates
     are ``enc_drops`` and ``dec_drop`` times ``drop_scaling``.
     ``lstm_kernel`` (see :class:`WeightDropLSTM`) reaches every layer and
-    may be set on a built model.  ``fused_ce`` needs the chunked CE, which
-    is not ported yet.  ``device`` defaults to cuda (see
-    ``nn.transformer.resolve_device``).
+    may be set on a built model.  ``fused_ce`` returns (h, tied weight,
+    enc_out) for :class:`FusedRegSeqCrossEntropyLoss`, which streams the
+    vocabulary (``ops.chunked_ce``) instead of building the logits.
+    ``device`` defaults to cuda (see ``nn.transformer.resolve_device``).
     """
 
     head_prefixes = ("enc/word_embed",)
@@ -718,10 +724,8 @@ class LanguageModelNet(_LSTMKernelSwitch, nn.Module):
                  num_layers: int = 3, fused_ce: bool = False,
                  lstm_kernel: Optional[bool] = None, device=None):
         super().__init__()
-        if fused_ce:
-            raise NotImplementedError(
-                f"LanguageModelNet(fused_ce=True): ops/chunked_ce.py {_TODO}")
         dev = resolve_device(device)
+        self.fused_ce = fused_ce
         self.vocab_size, self.pad_token = vocab_size, pad_token
         self.enc_drops = tuple(enc_drops)
         self.emb_dim, self.hidden_size = emb_dim, hidden_size
@@ -745,6 +749,9 @@ class LanguageModelNet(_LSTMKernelSwitch, nn.Module):
         from a device generator seeded by one draw from ``generator``."""
         gen = device_generator(generator, x.device) if train else None
         enc_out, tied = self.enc(x, train, gen, return_embed_weight=True)
+        if self.fused_ce:
+            return (self.dec(enc_out, tied, train, gen, return_hidden=True),
+                    tied, enc_out)
         return self.dec(enc_out, tied, train, gen), enc_out
 
     @classmethod
@@ -875,6 +882,28 @@ class RegSeqCrossEntropyLoss:
     def __call__(self, outputs, target, mask=None):
         preds, enc_out = outputs[0], outputs[1]
         loss = seq_cross_entropy_loss(preds, target, mask)
+        if self.alpha > 0:
+            loss = loss + self.alpha * enc_out.square().mean()
+        if self.beta > 0:
+            loss = loss + self.beta * (enc_out[:, 1:]
+                                       - enc_out[:, :-1]).square().mean()
+        return loss
+
+
+class FusedRegSeqCrossEntropyLoss:
+    """:class:`RegSeqCrossEntropyLoss` for ``LanguageModelNet(fused_ce=
+    True)`` (JAX text.py:792): outputs are (h, tied weight, enc_out) and
+    the CE streams the vocabulary in ``chunk`` rows (``ops.chunked_ce``),
+    so the (B, T, V) logits are never built."""
+
+    def __init__(self, alpha=2.0, beta=1.0, chunk: int = 8192):
+        self.alpha, self.beta = alpha, beta
+        self.chunk = chunk
+
+    def __call__(self, outputs, target, mask=None):
+        h, tied, enc_out = outputs
+        loss = chunked_softmax_ce(h, tied, target, token_mask(target, mask),
+                                  self.chunk)
         if self.alpha > 0:
             loss = loss + self.alpha * enc_out.square().mean()
         if self.beta > 0:

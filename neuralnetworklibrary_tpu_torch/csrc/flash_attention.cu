@@ -24,7 +24,14 @@
 // logit bias (H, T, T) added to the scaled score (T5's relative
 // positions); a key mask entered ADDITIVELY as a (B, T) float32 row of
 // 0 / -1e30, so a row whose keys are all masked attends uniformly over the
-// keys its position sees, as the JAX package's rule is; in-kernel dropout.
+// keys its position sees, as the JAX package's rule is; in-kernel dropout;
+// packed rows, as a (B, T) int32 document start per query (q_start, causal
+// only): query qp sees key kp only if kp >= its start, one more compare in
+// the position test (the bf16 kernels test it on EDGE tiles only); K1/K2
+// (bf16) skip the key tiles that lie wholly before the smallest start of a
+// block's rows; a per-head float32 sink logit (K1 only) that joins each
+// row's softmax normalizer at the end: m' = max(m, sink), l' = l e^(m - m') + e^(sink - m'), lse = m' + log l',
+// so the backward's p = exp(s - lse) needs no change.
 //
 // Layout: q, k, v, o, do, dq, dk, dv are (B, T, H, hd) row-major, so a row
 // of one head is hd contiguous elements and rows are H*hd apart; lse and
@@ -73,11 +80,15 @@
 //   accumulation sees the mask, scaled by 1/(1 - rate).
 //
 // Later work: a persistent grid; fp8; native GQA (read the Hkv heads
-// through the tensor maps); q_start and sink; head dims other than 64 and
-// 128.
+// through the tensor maps); head dims other than 64 and 128; in K3, the
+// query tiles of other documents skipped (it visits the whole causal
+// range: a consumer-side skip measured 17% faster at the Qwen3 shape but
+// spilled at hd 128) and a q_start-only instantiation (packed rows run the
+// options' path).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 #include <string.h>
 
@@ -186,18 +197,27 @@ __device__ __forceinline__ void load_rows(float* __restrict__ dst,
 }
 
 // Whether query qp sees key kp by position alone (the key mask is added to
-// the score instead).  window > 0 only with causal.
+// the score instead).  window > 0 and qs (the query's document start; 0 or
+// INT_MIN without packing) only with causal.
 __device__ __forceinline__ bool attends(int qp, int kp, int Tn, int causal,
-                                        int window) {
+                                        int window, int qs = INT_MIN) {
   if (qp >= Tn || kp >= Tn) return false;
-  return !causal || (kp <= qp && (window <= 0 || qp - kp < window));
+  return !causal ||
+         (kp <= qp && kp >= qs && (window <= 0 || qp - kp < window));
 }
 
 // The number of keys query qp sees by position (n of a fully masked row).
 __device__ __forceinline__ float n_attended(int qp, int Tn, int causal,
-                                            int window) {
+                                            int window, int qs = 0) {
   if (!causal) return static_cast<float>(Tn);
-  return static_cast<float>(window > 0 ? min(qp + 1, window) : qp + 1);
+  const int lo = max(window > 0 ? qp - window + 1 : 0, max(qs, 0));
+  return static_cast<float>(qp - lo + 1);
+}
+
+// The document start of query qp in a batch row's (T) q_start, or 0.
+__device__ __forceinline__ int row_start(const int* __restrict__ qs_b, int qp,
+                                         int Tn) {
+  return qs_b && qp < Tn ? qs_b[qp] : 0;
 }
 
 // A row whose every key is masked: its saved lse is -1e30 (see above).
@@ -265,11 +285,14 @@ constexpr size_t dbias_smem() {
 }
 
 // The options every kernel takes, as one argument.  K1-K3 are compiled
-// twice: OPT = false when there is neither a bias nor a key mask, so the
-// plain causal path (GPT-2 training) keeps its registers and arithmetic.
+// twice: OPT = false when there is no bias, key mask, q_start or sink, so
+// the plain causal path (GPT-2 training) keeps its registers and
+// arithmetic.
 struct Opts {
   const float* bias;  // (H, T, T) or null
   const float* kvm;   // (B, T) additive key mask or null
+  const int* qs;      // (B, T) int32 document starts of packed rows or null
+  const float* sink;  // (H) float32 sink logits (K1) or null
   float sm_scale;
   int causal;
   int window;
@@ -305,14 +328,17 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const float* bias_h =
       OPT && op.bias ? op.bias + (size_t)h * Tn * Tn : nullptr;
   const float* kvm_b = OPT && op.kvm ? op.kvm + (size_t)b * Tn : nullptr;
+  const int* qs_b = OPT && op.qs ? op.qs + (size_t)b * Tn : nullptr;
 
   load_tile<T, HD>(q_s, q + base, q0, Tn, rs, op.sm_scale);
   float acc[4][NB];
   float m[4], l[4];
+  int qsr[4];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     m[r] = kNegInf;
     l[r] = 0.f;
+    qsr[r] = row_start(qs_b, q0 + ty * 4 + r, Tn);
 #pragma unroll
     for (int j = 0; j < NB; ++j) acc[r][j] = 0.f;
   }
@@ -334,7 +360,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int kp = k0 + tx + 16 * c;
-        keep[c] = attends(qp, kp, Tn, op.causal, op.window);
+        keep[c] = attends(qp, kp, Tn, op.causal, op.window, qsr[r]);
         if (keep[c]) {
           s[r][c] += logit_add(bias_h, kvm_b, qp, kp, Tn);
           mx = fmaxf(mx, s[r][c]);
@@ -364,12 +390,20 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   for (int r = 0; r < 4; ++r) {
     const int qp = q0 + ty * 4 + r;
     if (qp >= Tn) continue;
-    const float inv_l = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    float mr = m[r], lr = l[r], sc = 1.f;
+    if (OPT && op.sink) {  // the sink joins the normalizer only
+      const float sk = op.sink[h];
+      const float mt = fmaxf(mr, sk);
+      sc = expf(mr - mt);
+      lr = lr * sc + expf(sk - mt);
+      mr = mt;
+    }
+    const float inv_l = lr > 0.f ? sc / lr : 0.f;
     T* orow = o + base + (size_t)qp * rs;
 #pragma unroll
     for (int d = 0; d < NB; ++d)
       orow[tx + 16 * d] = from_f32<T>(acc[r][d] * inv_l);
-    if (tx == 0) lse[(size_t)bh * Tn + qp] = m[r] + logf(l[r]);
+    if (tx == 0) lse[(size_t)bh * Tn + qp] = mr + logf(lr);
   }
 }
 
@@ -406,12 +440,16 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   const float* bias_h =
       OPT && op.bias ? op.bias + (size_t)h * Tn * Tn : nullptr;
   const float* kvm_b = OPT && op.kvm ? op.kvm + (size_t)b * Tn : nullptr;
+  const int* qs_b = OPT && op.qs ? op.qs + (size_t)b * Tn : nullptr;
 
   load_tile<T, HD>(q_s, q + base, q0, Tn, rs);
   load_tile<T, HD>(do_s, dout + base, q0, Tn, rs);
   load_rows(lse_s, lse + (size_t)bh * Tn, q0, Tn);
   load_rows(dl_s, delta + (size_t)bh * Tn, q0, Tn);
   float acc[4][NB] = {};
+  int qsr[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) qsr[r] = row_start(qs_b, q0 + ty * 4 + r, Tn);
   int j_begin, j_end;
   key_tiles(q0, Tn, op.causal, op.window, &j_begin, &j_end);
   for (int j = j_begin; j <= j_end; ++j) {
@@ -429,11 +467,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
       const int row = ty * 4 + r;
       const int qp = q0 + row;
       const float inv_n =
-          OPT ? 1.f / n_attended(qp, Tn, op.causal, op.window) : 0.f;
+          OPT ? 1.f / n_attended(qp, Tn, op.causal, op.window, qsr[r]) : 0.f;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int kp = k0 + tx + 16 * c;
-        const bool keep = attends(qp, kp, Tn, op.causal, op.window);
+        const bool keep = attends(qp, kp, Tn, op.causal, op.window, qsr[r]);
         const float sc = keep ? s[r][c] * op.sm_scale
                                     + logit_add(bias_h, kvm_b, qp, kp, Tn)
                               : 0.f;
@@ -494,6 +532,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   const float* bias_h =
       OPT && op.bias ? op.bias + (size_t)h * Tn * Tn : nullptr;
   const float* kvm_b = OPT && op.kvm ? op.kvm + (size_t)b * Tn : nullptr;
+  const int* qs_b = OPT && op.qs ? op.qs + (size_t)b * Tn : nullptr;
 
   load_tile<T, HD>(k_s, k + base, k0, Tn, rs);
   load_tile<T, HD>(v_s, v + base, k0, Tn, rs);
@@ -521,12 +560,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     for (int r = 0; r < 4; ++r) {
       const int row = ty * 4 + r;
       const int qp = q0 + row;
+      const int qsv = row_start(qs_b, qp, Tn);
       const float inv_n =
-          OPT ? 1.f / n_attended(qp, Tn, op.causal, op.window) : 0.f;
+          OPT ? 1.f / n_attended(qp, Tn, op.causal, op.window, qsv) : 0.f;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int kp = k0 + tx + 16 * c;
-        const bool keep = attends(qp, kp, Tn, op.causal, op.window);
+        const bool keep = attends(qp, kp, Tn, op.causal, op.window, qsv);
         const float sc = keep ? s[r][c] * op.sm_scale
                                     + logit_add(bias_h, kvm_b, qp, kp, Tn)
                               : 0.f;
@@ -595,11 +635,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dbias_kernel(
 
   float acc[4][4] = {};
   float bias_r[4][4];
-  float inv_n[4];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int qp = q0 + ty * 4 + r;
-    inv_n[r] = 1.f / n_attended(qp, Tn, op.causal, op.window);
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int kp = k0 + tx + 16 * c;
@@ -612,6 +650,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dbias_kernel(
     const int bh = b * H + h;
     const size_t base = (size_t)b * Tn * rs + (size_t)h * HD;
     const float* kvm_b = op.kvm ? op.kvm + (size_t)b * Tn : nullptr;
+    const int* qs_b = op.qs ? op.qs + (size_t)b * Tn : nullptr;
     __syncthreads();  // the last batch row's products are done
     load_tile<T, HD>(q_s, q + base, q0, Tn, rs);
     load_tile<T, HD>(do_s, dout + base, q0, Tn, rs);
@@ -628,10 +667,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dbias_kernel(
     for (int r = 0; r < 4; ++r) {
       const int row = ty * 4 + r;
       const int qp = q0 + row;
+      const int qsv = row_start(qs_b, qp, Tn);
+      const float inv_n =
+          1.f / n_attended(qp, Tn, op.causal, op.window, qsv);
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int kp = k0 + tx + 16 * c;
-        const bool keep = attends(qp, kp, Tn, op.causal, op.window);
+        const bool keep = attends(qp, kp, Tn, op.causal, op.window, qsv);
         float sc = s[r][c] * op.sm_scale + bias_r[r][c];
         bool kv_ok = true;
         if (kvm_b && keep) {
@@ -641,8 +683,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dbias_kernel(
         float g = dp[r][c];
         if (op.rate > 0.f)
           g *= drop_keep(op.seed, bh, qp, kp, op.rate) ? inv_keep : 0.f;
-        acc[r][c] += pair_grad<true>(keep, kv_ok, sc, lse_s[row], inv_n[r],
-                                     g, dl_s[row]).ds;
+        acc[r][c] += pair_grad<true>(keep, kv_ok, sc, lse_s[row], inv_n, g,
+                                     dl_s[row]).ds;
       }
     }
   }
@@ -698,10 +740,13 @@ __global__ void drop_keep_kernel(const int32_t* __restrict__ seeds,
 // additive key mask are added; p is rounded to bf16 only as the operand
 // of the second product, after dropout, as the JAX kernel does.
 //
-// Each kernel is built twice: OPT = false for no bias, no key mask and
-// no dropout (GPT-2 training), true otherwise.  Per key tile, a consumer
-// takes the EDGE path (the position test on every pair) only where its
-// rows and the tile cross the causal diagonal, the window's edge or T.
+// Each kernel is built twice: OPT = false for no bias, no key mask, no
+// q_start, no sink and no dropout (GPT-2 training), true otherwise.  Per
+// key tile, a consumer takes the EDGE path (the position test on every
+// pair) only where its rows and the tile cross the causal diagonal, the
+// window's edge or T, or where a row's document starts after the tile's
+// first key (qs_bounds: a document boundary may fall inside a tile that
+// the causal rule alone calls interior).
 
 using namespace nnl_hopper;
 
@@ -752,14 +797,40 @@ __device__ __forceinline__ void key_range(int q0, int rows, int Tn,
 }
 
 // Whether every pair of query rows qc0 .. qc0 + BQ - 1 and key rows k0 ..
-// k0 + BK - 1 is attended by position, so the per-pair position test can
-// be skipped.
+// k0 + BK - 1 is attended by causal position and window (q_start is
+// tested beside it, see above).
 template <int BK, int BQ = 64>
 __device__ __forceinline__ bool interior(int qc0, int k0, int Tn,
                                         int causal, int window) {
   if (k0 + BK > Tn || qc0 + BQ > Tn) return false;
   return !causal || (k0 + BK - 1 <= qc0 &&
                      (window <= 0 || qc0 + BQ - 1 - k0 < window));
+}
+
+// The smallest and the largest document start (q_start, each clamped to
+// its own row) among the query rows of each consumer half, q0 .. q0 + 63
+// and q0 + 64 .. q0 + 127, into lo[c] and hi[c] (INT_MAX and INT_MIN for a
+// half past T): key tiles that end before lo are skipped, and a tile is
+// EDGE (the per-pair test) only where it starts before hi.  q_start need
+// not be sorted.  All threads of the block call it.
+__device__ __forceinline__ void qs_bounds(const int* __restrict__ qs_b,
+                                          int q0, int Tn, int (&lo)[2],
+                                          int (&hi)[2]) {
+  __shared__ int bounds[4];
+  if (threadIdx.x < 4) bounds[threadIdx.x] = threadIdx.x < 2 ? INT_MAX
+                                                             : INT_MIN;
+  __syncthreads();
+  const int t = q0 + threadIdx.x;
+  if (threadIdx.x < 128 && t < Tn) {
+    const int s = min(qs_b[t], t);
+    atomicMin(&bounds[threadIdx.x / 64], s);
+    atomicMax(&bounds[2 + threadIdx.x / 64], s);
+  }
+  __syncthreads();
+  lo[0] = bounds[0];
+  lo[1] = bounds[1];
+  hi[0] = bounds[2];
+  hi[1] = bounds[3];
 }
 
 // q_full, then full[s] (the TMA thread's expect_tx, plus n_full - 1 other
@@ -920,6 +991,7 @@ __device__ __forceinline__ float quad_max(float v) {
 // k0 + 8 j + cl + e of a tile starting at key k0.
 struct Pairs {
   int ra, cl, Tn, causal, window;
+  int qs[2];            // the document start of each row (OPT only)
   float sm_scale;
   const float* bias_h;  // this head's (T, T) bias, or null
   const float* kvm_b;   // this batch row's (T) key mask, or null
@@ -930,6 +1002,7 @@ struct Pairs {
   float rate;
 };
 
+template <bool OPT>
 __device__ __forceinline__ Pairs make_pairs(const Opts& op, int ra, int cl,
                                             int Tn, int bh, int b, int h) {
   Pairs px;
@@ -938,6 +1011,9 @@ __device__ __forceinline__ Pairs make_pairs(const Opts& op, int ra, int cl,
   px.Tn = Tn;
   px.causal = op.causal;
   px.window = op.window;
+  const int* qs_b = OPT && op.qs ? op.qs + (size_t)b * Tn : nullptr;
+  px.qs[0] = row_start(qs_b, ra, Tn);
+  px.qs[1] = row_start(qs_b, ra + 8, Tn);
   px.sm_scale = op.sm_scale;
   px.bias_h = op.bias ? op.bias + (size_t)h * Tn * Tn : nullptr;
   px.kvm_b = op.kvm ? op.kvm + (size_t)b * Tn : nullptr;
@@ -972,8 +1048,8 @@ __device__ __forceinline__ void logit_pair(const Pairs& px, int qp, int kp,
 }
 
 // K1, one tile: s (64 x BK scores) becomes the scaled logits (bias and key
-// mask added, -inf where the position is not attended); mx gets each
-// row's max.
+// mask added, -inf where the position or the document start is not
+// attended); mx gets each row's max.
 template <int BK, bool OPT, bool EDGE>
 __device__ __forceinline__ void fwd_logits(float (&s)[BK / 2],
                                            float (&mx)[2], int k0,
@@ -991,12 +1067,14 @@ __device__ __forceinline__ void fwd_logits(float (&s)[BK / 2],
     for (int r = 0; r < 2; ++r) {
       const int qp = px.ra + 8 * r;
       const int i = 4 * j + 2 * r;
+      // a literal without the options, so the test folds away
+      const int qs = OPT ? px.qs[r] : INT_MIN;
       float x0 = s[i] * px.sm_scale, x1 = s[i + 1] * px.sm_scale;
       if (EDGE) {
-        x0 = !attends(qp, kp, px.Tn, px.causal, px.window) ? ninf
+        x0 = !attends(qp, kp, px.Tn, px.causal, px.window, qs) ? ninf
              : OPT ? x0 + logit_add(px.bias_h, px.kvm_b, qp, kp, px.Tn)
                    : x0;
-        x1 = !attends(qp, kp + 1, px.Tn, px.causal, px.window) ? ninf
+        x1 = !attends(qp, kp + 1, px.Tn, px.causal, px.window, qs) ? ninf
              : OPT ? x1 + logit_add(px.bias_h, px.kvm_b, qp, kp + 1, px.Tn)
                    : x1;
       } else if (OPT) {
@@ -1095,20 +1173,23 @@ __device__ __forceinline__ void dq_grads(float (&s)[BK / 2],
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         float ds = 0.f;
-        if (!EDGE || attends(qp, kp + e, px.Tn, px.causal, px.window)) {
-          float sc = s[i + e] * px.sm_scale;
+        if (!EDGE || attends(qp, kp + e, px.Tn, px.causal, px.window,
+                             OPT ? px.qs[r] : INT_MIN)) {
           if (OPT && EDGE) {
             add[e] = logit_add(px.bias_h, px.kvm_b, qp, kp + e, px.Tn);
             kv[e] = px.kvm_b ? px.kvm_b[kp + e] : 0.f;
           }
-          if (OPT) sc += add[e];
+          // s * scale + add - lse in one rounding, so the options' path
+          // gives the plain path's bits where add is 0 (a q_start of one
+          // document)
+          const float t = __fmaf_rn(s[i + e], px.sm_scale,
+                                    (OPT ? add[e] : 0.f) - lse[r]);
           float g = dp[i + e];
           if (DROP)
             g = drop_keep_at(px.drow[r], kp + e, px.thresh) ? g * px.inv_keep
                                                             : 0.f;
-          const float p = OPT && fully_masked(lse[r])
-                              ? inv_n[r]
-                              : exp2f((sc - lse[r]) * kLog2e);
+          const float p = OPT && fully_masked(lse[r]) ? inv_n[r]
+                                                      : exp2f(t * kLog2e);
           if (!OPT || kv[e] == 0.f) ds = p * (g - dl[r]);
         }
         s[i + e] = ds;
@@ -1190,6 +1271,11 @@ __global__ void __launch_bounds__(kThreadsTC, 1) flash_fwd_tc_kernel(
   const int h = bh - b * H;
   int j_begin, j_end;
   key_range<BK>(q0, kRowsTC, Tn, op.causal, op.window, &j_begin, &j_end);
+  int qlo[2] = {0, 0}, qhi[2] = {INT_MIN, INT_MIN};
+  if (OPT && op.qs) {
+    qs_bounds(op.qs + (size_t)b * Tn, q0, Tn, qlo, qhi);
+    j_begin = max(j_begin, min(qlo[0], qlo[1]) / BK);
+  }
   tc_init_barriers<STAGES>(bars);
 
   const int wg = threadIdx.x / 128;
@@ -1207,14 +1293,16 @@ __global__ void __launch_bounds__(kThreadsTC, 1) flash_fwd_tc_kernel(
     const int qc0 = q0 + 64 * c;
     const int ra = qc0 + 16 * ((threadIdx.x & 127) >> 5) + (lane >> 2);
     const int cl = 2 * (lane & 3);
-    const Pairs px = make_pairs(op, ra, cl, Tn, bh, b, h);
+    const Pairs px = make_pairs<OPT>(op, ra, cl, Tn, bh, b, h);
     const Ring<STAGES> ring{bars + 1, bars + 1 + STAGES};
     const uint32_t q_base = smem_addr(sm) + c * 64 * kHalfRow;
     const uint32_t kv0 = smem_addr(sm + L::kRing);
     // this consumer's tiles: a contiguous part of the block's (none past T)
     int jc_begin, jc_end;
     key_range<BK>(qc0, 64, Tn, op.causal, op.window, &jc_begin, &jc_end);
+    jc_begin = max(jc_begin, qlo[c] / BK);
     if (qc0 >= Tn) jc_begin = j_end + 1;
+    const int qhi_c = qhi[c];  // tiles starting before it are EDGE
     const int it_begin = jc_begin - j_begin;
     const int it_end = min(jc_end, j_end) - j_begin;  // inclusive
     const int n_it = j_end - j_begin + 1;
@@ -1241,9 +1329,10 @@ __global__ void __launch_bounds__(kThreadsTC, 1) flash_fwd_tc_kernel(
       wgmma_wait<0>();
       fence_regs(s);
       int k0 = (j_begin + it_begin) * BK;
-      fwd_softmax<BK, OPT>(s, m, l, alpha, k0,
-                           !interior<BK>(qc0, k0, Tn, op.causal, op.window),
-                           px);
+      fwd_softmax<BK, OPT>(
+          s, m, l, alpha, k0,
+          !interior<BK>(qc0, k0, Tn, op.causal, op.window) || k0 < qhi_c,
+          px);
       pack_operand<BK>(s, pa);
       for (int it = it_begin + 1; it <= it_end; ++it) {
         // S of tile it and P V of tile it - 1 on the tensor cores, then
@@ -1258,9 +1347,10 @@ __global__ void __launch_bounds__(kThreadsTC, 1) flash_fwd_tc_kernel(
         wgmma_wait<1>();
         fence_regs(s);
         k0 = (j_begin + it) * BK;
-        fwd_softmax<BK, OPT>(s, m, l, alpha, k0,
-                             !interior<BK>(qc0, k0, Tn, op.causal, op.window),
-                             px);
+        fwd_softmax<BK, OPT>(
+            s, m, l, alpha, k0,
+            !interior<BK>(qc0, k0, Tn, op.causal, op.window) || k0 < qhi_c,
+            px);
         wgmma_wait<0>();
         fence_acc<HD>(acc);
         fence_operand(pa);
@@ -1285,8 +1375,19 @@ __global__ void __launch_bounds__(kThreadsTC, 1) flash_fwd_tc_kernel(
     }
     if (qc0 < Tn) {
       const size_t rs = (size_t)H * HD;
-      const float inv_l[2] = {l[0] > 0.f ? 1.f / l[0] : 0.f,
-                              l[1] > 0.f ? 1.f / l[1] : 0.f};
+      float inv_l[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float sc = 1.f;
+        if (OPT && op.sink) {  // the sink joins the normalizer only
+          const float sk = op.sink[h];
+          const float mt = fmaxf(m[r], sk);
+          sc = expf(m[r] - mt);
+          l[r] = l[r] * sc + expf(sk - mt);
+          m[r] = mt;
+        }
+        inv_l[r] = l[r] > 0.f ? sc / l[r] : 0.f;
+      }
       store_rows<HD>(acc, inv_l, o + (size_t)b * Tn * rs + (size_t)h * HD,
                      rs, ra, cl, Tn);
       if ((lane & 3) == 0) {
@@ -1331,6 +1432,11 @@ __global__ void __launch_bounds__(kThreadsTC, 1) flash_bwd_dq_tc_kernel(
   const int h = bh - b * H;
   int j_begin, j_end;
   key_range<BK>(q0, kRowsTC, Tn, op.causal, op.window, &j_begin, &j_end);
+  int qlo[2] = {0, 0}, qhi[2] = {INT_MIN, INT_MIN};
+  if (OPT && op.qs) {
+    qs_bounds(op.qs + (size_t)b * Tn, q0, Tn, qlo, qhi);
+    j_begin = max(j_begin, min(qlo[0], qlo[1]) / BK);
+  }
   tc_init_barriers<STAGES>(bars);
 
   const int wg = threadIdx.x / 128;
@@ -1348,14 +1454,16 @@ __global__ void __launch_bounds__(kThreadsTC, 1) flash_bwd_dq_tc_kernel(
     const int qc0 = q0 + 64 * c;
     const int ra = qc0 + 16 * ((threadIdx.x & 127) >> 5) + (lane >> 2);
     const int cl = 2 * (lane & 3);
-    const Pairs px = make_pairs(op, ra, cl, Tn, bh, b, h);
+    const Pairs px = make_pairs<OPT>(op, ra, cl, Tn, bh, b, h);
     const Ring<STAGES> ring{bars + 1, bars + 1 + STAGES};
     const uint32_t q_base = smem_addr(sm) + c * 64 * kHalfRow;
     const uint32_t do_base = q_base + L::kQ;
     const uint32_t kv0 = smem_addr(sm + L::kRing);
     int jc_begin, jc_end;
     key_range<BK>(qc0, 64, Tn, op.causal, op.window, &jc_begin, &jc_end);
+    jc_begin = max(jc_begin, qlo[c] / BK);
     if (qc0 >= Tn) jc_begin = j_end + 1;
+    const int qhi_c = qhi[c];  // tiles starting before it are EDGE
     const int it_begin = jc_begin - j_begin;
     const int it_end = min(jc_end, j_end) - j_begin;  // inclusive
     const int n_it = j_end - j_begin + 1;
@@ -1370,7 +1478,9 @@ __global__ void __launch_bounds__(kThreadsTC, 1) flash_bwd_dq_tc_kernel(
       const int qp = ra + 8 * r;
       lse_r[r] = qp < Tn ? lse[(size_t)bh * Tn + qp] : 0.f;
       dl_r[r] = qp < Tn ? delta[(size_t)bh * Tn + qp] : 0.f;
-      inv_n[r] = OPT ? 1.f / n_attended(qp, Tn, op.causal, op.window) : 0.f;
+      inv_n[r] = OPT ? 1.f / n_attended(qp, Tn, op.causal, op.window,
+                                        px.qs[r])
+                     : 0.f;
     }
     float acc[HD / 64][32];
 #pragma unroll
@@ -1401,8 +1511,9 @@ __global__ void __launch_bounds__(kThreadsTC, 1) flash_bwd_dq_tc_kernel(
           ring.release(it - 1);
         }
         dq_grads_any<BK, OPT>(
-            s, dp, k0, !interior<BK>(qc0, k0, Tn, op.causal, op.window), px,
-            lse_r, dl_r, inv_n);
+            s, dp, k0,
+            !interior<BK>(qc0, k0, Tn, op.causal, op.window) || k0 < qhi_c,
+            px, lse_r, dl_r, inv_n);
         pack_operand<BK>(s, da);
         wgmma_fence();
         tc_accumulate<HD, BK>(acc, da, k_base);
@@ -1473,7 +1584,7 @@ constexpr int kDkvStages128 = 3;
 // it gives back), or 0 for no setmaxnreg and 168 each.  ptxas allocates
 // each side within its count, so too few spill in the producer's code
 // and too many in the consumers' (chosen by measurement, PERF.md).
-constexpr int kDkvProducerRegs64 = 80;
+constexpr int kDkvProducerRegs64 = 88;
 constexpr int kDkvProducerRegs128 = 72;
 
 // The producer threads that stage each query tile's lse and delta (and a
@@ -1483,14 +1594,15 @@ constexpr int kStagers = 96;
 
 // K3's shared memory: k and v stationary (ROWS rows), the ring of q and dO
 // tiles, then per stage, with the options, its float32 bias tile (see
-// bias_at), and per stage the tile's lse and delta (BQ floats each).
+// bias_at), and per stage the tile's lse, delta and document starts (BQ
+// floats each, the starts as int32 bits).
 template <int HD, int BQ, int ROWS, int STAGES, bool OPT>
 struct DkvSmem {
   using Tc = TcSmem<HD, BQ, 2, STAGES, ROWS>;
   static constexpr int kBias = Tc::kBars;
   static constexpr int kBiasStage = OPT ? BQ * ROWS * 4 : 0;
   static constexpr int kRows = kBias + STAGES * kBiasStage;
-  static constexpr int kBars = kRows + STAGES * 2 * BQ * 4;
+  static constexpr int kBars = kRows + STAGES * 3 * BQ * 4;
   // q_full, full, empty (tc_init_barriers), then copied[STAGES]
   static constexpr size_t kBytes = kBars + 8 * (1 + 3 * STAGES) + 1024;
 };
@@ -1545,7 +1657,8 @@ __device__ __forceinline__ void query_range(int k0, int rows, int Tn,
 // released the stage (empty), the dS they left in its bias tile (tile it -
 // STAGES, when part_bh is given) goes to the scratch row by row, 16-byte
 // stores along the key axis, and the stage is marked copied (TMA may
-// refill its bias tile); then the tile's lse and delta (0 past T) and,
+// refill its bias tile); then the tile's lse, delta and document starts
+// (qs_b, or 0; 0 past T) and,
 // given bias_h (a bias TMA cannot read: T no multiple of 4), its bias
 // tile (0 past T) in bias_at's layout, and each thread arrives on the
 // stage's full barrier.
@@ -1554,6 +1667,7 @@ __device__ __forceinline__ void dkv_stage(uint8_t* sm, uint64_t* bars,
                                           const float* __restrict__ lse_bh,
                                           const float* __restrict__ dl_bh,
                                           const float* __restrict__ bias_h,
+                                          const int* __restrict__ qs_b,
                                           float* __restrict__ part_bh,
                                           int kb0, int i_begin, int i_end,
                                           int Tn, int Tp) {
@@ -1584,11 +1698,12 @@ __device__ __forceinline__ void dkv_stage(uint8_t* sm, uint64_t* bars,
     if (it >= n_it) continue;
     mbar_arrive(&copied[st]);
     const int q0 = (i_begin + it) * BQ;
-    float* rows = reinterpret_cast<float*>(sm + L::kRows) + st * 2 * BQ;
+    float* rows = reinterpret_cast<float*>(sm + L::kRows) + st * 3 * BQ;
     for (int r = t; r < BQ; r += kStagers) {
       const bool in = q0 + r < Tn;
       rows[r] = in ? lse_bh[q0 + r] : 0.f;
       rows[BQ + r] = in ? dl_bh[q0 + r] : 0.f;
+      rows[2 * BQ + r] = __int_as_float(row_start(qs_b, q0 + r, Tn));
     }
     if (OPT && bias_h) {
       // every stager has copied the tile's last dS out before any
@@ -1629,7 +1744,8 @@ struct DkvPairs {
 // - delta) in dp (dK's), m the dropout keep factor (1 / (1 - rate) or 0);
 // both are 0 where the pair is not attended, dS also on a masked key.  P
 // is exp2((s - lse) log2 e) of the scaled score plus bias and key mask,
-// or 1/n on a fully masked row.  lse and delta come from the stage's rows,
+// or 1/n on a fully masked row.  lse, delta and the query's document start
+// (tested on EDGE tiles only) come from the stage's rows,
 // the bias from its tile bt (with the options); when ds_out, dS (float32,
 // before its bf16 rounding) goes back into the bias tile in its place.
 // The dropout hash takes (query, key), in that order.
@@ -1644,14 +1760,17 @@ __device__ __forceinline__ void dkv_grads(float (&s)[BQ / 2],
     const int qc = 8 * j + px.cl;
     const float2 ls = *reinterpret_cast<const float2*>(rows + qc);
     const float2 dl = *reinterpret_cast<const float2*>(rows + BQ + qc);
+    const int2 qq = *reinterpret_cast<const int2*>(rows + 2 * BQ + qc);
     const float lse[2] = {ls.x, ls.y};
     const float dlt[2] = {dl.x, dl.y};
+    const int qsv[2] = {OPT ? qq.x : INT_MIN, OPT ? qq.y : INT_MIN};
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int qp = q0 + qc + e;
       const uint32_t drow = DROP ? drop_row(px.seed, px.bh, qp) : 0u;
       const float inv_n =
-          OPT ? 1.f / n_attended(qp, px.Tn, px.causal, px.window) : 0.f;
+          OPT ? 1.f / n_attended(qp, px.Tn, px.causal, px.window, qsv[e])
+              : 0.f;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int i = 4 * j + 2 * r + e;
@@ -1659,13 +1778,14 @@ __device__ __forceinline__ void dkv_grads(float (&s)[BQ / 2],
         float* at =
             OPT && bt ? bt + bias_at<BQ>(qc + e, px.kl + 8 * r) : nullptr;
         float p = 0.f, ds = 0.f;
-        if (!EDGE || attends(qp, kp, px.Tn, px.causal, px.window)) {
-          float sc = s[i] * px.sm_scale;
-          if (OPT) sc += (at ? *at : 0.f) + px.kv[r];
+        if (!EDGE || attends(qp, kp, px.Tn, px.causal, px.window, qsv[e])) {
+          // s * scale + add - lse in one rounding (see dq_grads)
+          const float t = __fmaf_rn(
+              s[i], px.sm_scale,
+              (OPT ? (at ? *at : 0.f) + px.kv[r] : 0.f) - lse[e]);
           float m = 1.f;
           if (DROP) m = drop_keep_at(drow, kp, px.thresh) ? px.inv_keep : 0.f;
-          p = OPT && fully_masked(lse[e]) ? inv_n
-                                          : exp2f((sc - lse[e]) * kLog2e);
+          p = OPT && fully_masked(lse[e]) ? inv_n : exp2f(t * kLog2e);
           if (!OPT || px.kv[r] == 0.f) ds = p * (dp[i] * m - dlt[e]);
           p *= m;
         }
@@ -1747,6 +1867,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) flash_bwd_dkv_tc_kernel(
           sm, bars, lse + (size_t)bh * Tn, delta + (size_t)bh * Tn,
           OPT && op.bias && !tma_bias ? op.bias + (size_t)h * Tn * Tn
                                       : nullptr,
+          OPT && op.qs ? op.qs + (size_t)b * Tn : nullptr,
           OPT && op.bias && part ? part + (size_t)bh * Tp * Tp : nullptr, kb0,
           i_begin, i_end, Tn, Tp);
     }
@@ -1822,13 +1943,20 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) flash_bwd_dkv_tc_kernel(
           ring.release(it - 1);
         }
         const float* rows =
-            reinterpret_cast<const float*>(sm + L::kRows) + st * 2 * BQ;
+            reinterpret_cast<const float*>(sm + L::kRows) + st * 3 * BQ;
         float* bt = OPT && op.bias ? reinterpret_cast<float*>(
                                          sm + L::kBias + st * L::kBiasStage)
                                    : nullptr;
-        dkv_grads_any<BQ, OPT>(
-            s, dp, q0, !interior<64, BQ>(q0, k0, Tn, op.causal, op.window),
-            px, rows, bt, ds_out);
+        bool edge = !interior<64, BQ>(q0, k0, Tn, op.causal, op.window);
+        if (OPT && op.qs && !edge) {
+          // a tile interior by position is EDGE too where a query's
+          // document starts after this consumer's first key
+          const int* qsr = reinterpret_cast<const int*>(rows + 2 * BQ);
+          int mx = qsr[lane % BQ];
+          if (BQ > 32) mx = max(mx, qsr[(lane + 32) % BQ]);
+          edge = __reduce_max_sync(0xffffffffu, mx) > k0;
+        }
+        dkv_grads_any<BQ, OPT>(s, dp, q0, edge, px, rows, bt, ds_out);
         // dS (written into the bias tile) goes out through the stagers,
         // after this stage is released; TMA refills the tile after that
         if (ds_out) fence_proxy_async();
@@ -1921,8 +2049,9 @@ bool aligned16(const void* p) {
 template <int HD>
 int fwd_simt(const void* q, const void* k, const void* v, void* o, void* lse,
              int B, int Tn, int H, Opts op, cudaStream_t stream) {
-  auto kern = op.bias || op.kvm ? flash_fwd_kernel<float, HD, true>
-                                 : flash_fwd_kernel<float, HD, false>;
+  auto kern = op.bias || op.kvm || op.qs || op.sink
+                  ? flash_fwd_kernel<float, HD, true>
+                  : flash_fwd_kernel<float, HD, false>;
   const size_t smem = fwd_smem<HD>();
   if (int e = prepare(kern, smem)) return e;
   kern<<<grid_of(B, Tn, H), kThreads, smem, stream>>>(
@@ -1941,7 +2070,7 @@ int fwd_tc(const void* q, const void* k, const void* v, void* o, void* lse,
   if (int e = bthd_map(&mq, q, B, Tn, H, HD, kRowsTC)) return e;
   if (int e = bthd_map(&mk, k, B, Tn, H, HD, BK)) return e;
   if (int e = bthd_map(&mv, v, B, Tn, H, HD, BK)) return e;
-  auto kern = op.bias || op.kvm || op.rate > 0.f
+  auto kern = op.bias || op.kvm || op.qs || op.sink || op.rate > 0.f
                   ? flash_fwd_tc_kernel<HD, BK, STAGES, true>
                   : flash_fwd_tc_kernel<HD, BK, STAGES, false>;
   const size_t smem = TcSmem<HD, BK, 1, STAGES>::kBytes;
@@ -1957,8 +2086,9 @@ int bwd_dq_simt(const void* q, const void* k, const void* v,
                 const void* dout, const void* lse, const void* delta,
                 void* dq, int B, int Tn, int H, Opts op,
                 cudaStream_t stream) {
-  auto kern = op.bias || op.kvm ? flash_bwd_dq_kernel<float, HD, true>
-                                 : flash_bwd_dq_kernel<float, HD, false>;
+  auto kern = op.bias || op.kvm || op.qs
+                  ? flash_bwd_dq_kernel<float, HD, true>
+                  : flash_bwd_dq_kernel<float, HD, false>;
   const size_t smem = dq_smem<HD>();
   if (int e = prepare(kern, smem)) return e;
   kern<<<grid_of(B, Tn, H), kThreads, smem, stream>>>(
@@ -1980,7 +2110,7 @@ int bwd_dq_tc(const void* q, const void* k, const void* v, const void* dout,
   if (int e = bthd_map(&mdo, dout, B, Tn, H, HD, kRowsTC)) return e;
   if (int e = bthd_map(&mk, k, B, Tn, H, HD, BK)) return e;
   if (int e = bthd_map(&mv, v, B, Tn, H, HD, BK)) return e;
-  auto kern = op.bias || op.kvm || op.rate > 0.f
+  auto kern = op.bias || op.kvm || op.qs || op.rate > 0.f
                   ? flash_bwd_dq_tc_kernel<HD, BK, STAGES, true>
                   : flash_bwd_dq_tc_kernel<HD, BK, STAGES, false>;
   const size_t smem = TcSmem<HD, BK, 2, STAGES>::kBytes;
@@ -2013,8 +2143,9 @@ int bwd_dkv_simt(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* delta,
                  void* dk, void* dv, int B, int Tn, int H, Opts op,
                  cudaStream_t stream) {
-  auto kern = op.bias || op.kvm ? flash_bwd_dkv_kernel<float, HD, true>
-                                 : flash_bwd_dkv_kernel<float, HD, false>;
+  auto kern = op.bias || op.kvm || op.qs
+                  ? flash_bwd_dkv_kernel<float, HD, true>
+                  : flash_bwd_dkv_kernel<float, HD, false>;
   const size_t smem = dkv_smem<HD>();
   if (int e = prepare(kern, smem)) return e;
   kern<<<grid_of(B, Tn, H), kThreads, smem, stream>>>(
@@ -2064,7 +2195,7 @@ int bwd_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
   const int bias_tma = op.bias && Tn % 4 == 0 && aligned16(op.bias);
   if (bias_tma)
     if (int e = htt_f32_map(&mb, op.bias, H, Tn, BQ)) return e;
-  const bool opt = op.bias || op.kvm || op.rate > 0.f;
+  const bool opt = op.bias || op.kvm || op.qs || op.rate > 0.f;
   auto kern = opt ? flash_bwd_dkv_tc_kernel<HD, BQ, NC, STAGES, true>
                   : flash_bwd_dkv_tc_kernel<HD, BQ, NC, STAGES, false>;
   const size_t smem =
@@ -2127,9 +2258,11 @@ int bwd_dkv_dbias_simt(const void* q, const void* k, const void* v,
                             stream);
 }
 
-Opts opts_of(const void* bias, const void* kvm, float sm_scale, int causal,
-             int window, float rate, int seed) {
+Opts opts_of(const void* bias, const void* kvm, const void* qs,
+             const void* sink, float sm_scale, int causal, int window,
+             float rate, int seed) {
   return Opts{static_cast<const float*>(bias), static_cast<const float*>(kvm),
+              static_cast<const int*>(qs), static_cast<const float*>(sink),
               sm_scale, causal, window, rate, static_cast<uint32_t>(seed)};
 }
 
@@ -2146,16 +2279,20 @@ extern "C" {
 
 // dtype codes: 0 = float32, 1 = bfloat16; hd 64 or 128.  bias is the
 // (H, T, T) float32 logit bias or null, kvm the (B, T) float32 additive key
-// mask (0 or -1e30) or null; causal 0 or 1; window > 0 only when causal.
+// mask (0 or -1e30) or null, qs the (B, T) int32 document starts of packed
+// rows (causal only) or null, sink the (H) float32 sink logits (forward
+// only) or null; causal 0 or 1; window > 0 only when causal.
 // seed is the int32 dropout seed (its bits), rate the dropout rate (0 =
 // none).  Each returns the cudaError_t of its launch (0 on success).
 // K1, K2 and K3 run the tensor-core kernels on bfloat16 (whose q, k, v, do
 // must be 16-byte aligned) and the SIMT kernels on float32.
 int nnl_flash_fwd(const void* q, const void* k, const void* v,
-                  const void* bias, const void* kvm, void* o, void* lse,
-                  int B, int Tn, int H, int hd, float sm_scale, int causal,
-                  int window, float rate, int seed, int dtype, void* stream) {
-  const Opts op = opts_of(bias, kvm, sm_scale, causal, window, rate, seed);
+                  const void* bias, const void* kvm, const void* qs,
+                  const void* sink, void* o, void* lse, int B, int Tn, int H,
+                  int hd, float sm_scale, int causal, int window, float rate,
+                  int seed, int dtype, void* stream) {
+  const Opts op =
+      opts_of(bias, kvm, qs, sink, sm_scale, causal, window, rate, seed);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     NNL_FLASH_HD(fwd_bf16, hd, q, k, v, o, lse, B, Tn, H, op, st);
@@ -2168,11 +2305,12 @@ int nnl_flash_fwd(const void* q, const void* k, const void* v,
 
 int nnl_flash_bwd_dq(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
-                     const void* bias, const void* kvm, void* dq, int B,
-                     int Tn, int H, int hd, float sm_scale, int causal,
-                     int window, float rate, int seed, int dtype,
+                     const void* bias, const void* kvm, const void* qs,
+                     void* dq, int B, int Tn, int H, int hd, float sm_scale,
+                     int causal, int window, float rate, int seed, int dtype,
                      void* stream) {
-  const Opts op = opts_of(bias, kvm, sm_scale, causal, window, rate, seed);
+  const Opts op =
+      opts_of(bias, kvm, qs, nullptr, sm_scale, causal, window, rate, seed);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     NNL_FLASH_HD(bwd_dq_bf16, hd, q, k, v, dout, lse, delta, dq, B, Tn, H, op,
@@ -2187,11 +2325,12 @@ int nnl_flash_bwd_dq(const void* q, const void* k, const void* v,
 
 int nnl_flash_bwd_dkv(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
-                      const void* bias, const void* kvm, void* dk, void* dv,
-                      int B, int Tn, int H, int hd, float sm_scale,
-                      int causal, int window, float rate, int seed,
-                      int dtype, void* stream) {
-  const Opts op = opts_of(bias, kvm, sm_scale, causal, window, rate, seed);
+                      const void* bias, const void* kvm, const void* qs,
+                      void* dk, void* dv, int B, int Tn, int H, int hd,
+                      float sm_scale, int causal, int window, float rate,
+                      int seed, int dtype, void* stream) {
+  const Opts op =
+      opts_of(bias, kvm, qs, nullptr, sm_scale, causal, window, rate, seed);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     NNL_FLASH_HD(bwd_dkv_bf16, hd, q, k, v, dout, lse, delta, dk, dv,
@@ -2212,12 +2351,14 @@ int nnl_flash_bwd_dkv(const void* q, const void* k, const void* v,
 int nnl_flash_bwd_dkv_dbias(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, const void* bias,
-                            const void* kvm, void* dk, void* dv, void* dbias,
-                            void* part, int B, int Tn, int H, int hd,
-                            float sm_scale, int causal, int window,
-                            float rate, int seed, int dtype, void* stream) {
+                            const void* kvm, const void* qs, void* dk,
+                            void* dv, void* dbias, void* part, int B, int Tn,
+                            int H, int hd, float sm_scale, int causal,
+                            int window, float rate, int seed, int dtype,
+                            void* stream) {
   if (bias == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const Opts op = opts_of(bias, kvm, sm_scale, causal, window, rate, seed);
+  const Opts op =
+      opts_of(bias, kvm, qs, nullptr, sm_scale, causal, window, rate, seed);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     if (part == nullptr) return static_cast<int>(cudaErrorInvalidValue);

@@ -351,6 +351,9 @@ class Learner:
         with self._autocast():
             y_pred = self.model(*xs, **self._model_kwargs(True))
         loss = self._apply_loss(_to_f32(y_pred), y, mask)
+        # the backward needs the float32 copies the loss took, not the
+        # model's own outputs (an LM's (B, T, V) bf16 logits): free them
+        del y_pred
         loss.backward()
         grads = {path: p.grad for path, p in self.params.items()
                  if p.grad is not None}

@@ -10,8 +10,10 @@ kernel (:func:`flash_bwd_dkv`, ``_bwd_dkv_kernel``), or, when a bias needs
 its gradient, one call that also gives dbias (:func:`flash_bwd_dkv_dbias`,
 replacing ``_bwd_dkv_kernel`` and ``_bwd_dbias_kernel`` together).  The
 kernels take causal or bidirectional attention, a causal window, a
-batch-shared (H, T, T) logit bias and a (B, T) key mask, and head dims 64
-and 128.  On bfloat16 the forward, dq and dk/dv kernels run on the tensor
+batch-shared (H, T, T) logit bias, a (B, T) key mask, packed rows as a
+(B, T) document start per query (``q_start``: query t sees key s only if
+s >= q_start[b, t], causal only), a per-head sink logit in the forward's
+normalizer (``sink``), and head dims 64 and 128.  On bfloat16 the forward, dq and dk/dv kernels run on the tensor
 cores (wgmma, fed by TMA, so q, k, v and dO must start on 16-byte
 boundaries), and dbias comes out of the dk/dv kernel's pass: it writes
 each batch row's dS to a scratch that a second kernel sums over the batch
@@ -19,11 +21,14 @@ in a fixed order (no atomics, so two runs give the same bits).  On float32
 the kernels compute in float32 on the CUDA cores.  A kernel that fails to
 build or launch raises.  On CPU tensors it runs
 :func:`reference_flash_attention`, the plain einsum version of the same
-function, which autograd differentiates.  There is no other fallback: an
-option the kernels do not take yet (``sink``, ``q_start``) raises
-``NotImplementedError`` on a CUDA tensor, and a head dim they do not take
-``ValueError``.  Models choose the flash path for a call only where the
-kernels take it (:func:`use_flash`).
+function, which autograd differentiates.  There is no other fallback: a
+head dim the kernels do not take raises ``ValueError``.  Models choose the
+flash path for a call only where the kernels take it (:func:`use_flash`).
+
+The sink's gradient needs no kernel: with the sink inside the saved lse,
+dsink[h] = -sum over b, t of exp(sink[h] - lse[b, h, t]) * delta[b, h, t],
+a torch op on the residuals, as the JAX package computes it
+(flash_attention.py:32-37).
 
 The key mask enters the kernels additively, -1e30 on a masked key, as in
 JAX, so a row whose every key is masked attends uniformly over the keys its
@@ -49,7 +54,6 @@ import torch
 _NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
-_TODO = "not in the CUDA kernels yet (ROADMAP Queue 2)"
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -57,14 +61,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _TAIL = [_I] * 4 + [_F, _I, _I, _F, _I, _I, _P]
 # (argtypes, restype) of every C entry point of csrc/flash_attention.cu
 SIGNATURES = {
-    # q, k, v, bias, kvm, o, lse
-    "nnl_flash_fwd": ([_P] * 7 + _TAIL, _I),
-    # q, k, v, do, lse, delta, bias, kvm, dq
-    "nnl_flash_bwd_dq": ([_P] * 9 + _TAIL, _I),
-    # q, k, v, do, lse, delta, bias, kvm, dk, dv
-    "nnl_flash_bwd_dkv": ([_P] * 10 + _TAIL, _I),
-    # q, k, v, do, lse, delta, bias, kvm, dk, dv, dbias, part
-    "nnl_flash_bwd_dkv_dbias": ([_P] * 12 + _TAIL, _I),
+    # q, k, v, bias, kvm, qs, sink, o, lse
+    "nnl_flash_fwd": ([_P] * 9 + _TAIL, _I),
+    # q, k, v, do, lse, delta, bias, kvm, qs, dq
+    "nnl_flash_bwd_dq": ([_P] * 10 + _TAIL, _I),
+    # q, k, v, do, lse, delta, bias, kvm, qs, dk, dv
+    "nnl_flash_bwd_dkv": ([_P] * 11 + _TAIL, _I),
+    # q, k, v, do, lse, delta, bias, kvm, qs, dk, dv, dbias, part
+    "nnl_flash_bwd_dkv_dbias": ([_P] * 13 + _TAIL, _I),
     # seeds, n_seeds, n_bh, n_q, n_k, q0, k0, rate, out, stream
     "nnl_flash_drop_keep": ([_P] + [_I] * 6 + [_F, _P, _P], _I),
     "nnl_flash_error_string": ([_I], ctypes.c_char_p),
@@ -82,24 +86,25 @@ def _lib():
     return lib
 
 
-def use_flash(flash_attention, device_type: str, dtype, head_dim: int, *,
-              sink: bool = False, q_start: bool = False) -> bool:
+def use_flash(flash_attention, device_type: str, dtype,
+              head_dim: int) -> bool:
     """The models' choice of the flash path for a full-sequence forward.
 
     ``flash_attention`` True or False is taken as given (True on a shape
     the kernels do not take then raises in the kernels' wrapper).  None
     (auto) picks flash exactly where the CUDA kernels take the call (a
-    CUDA device, float32 or bfloat16, head dim 64 or 128, no ``sink``, no
-    ``q_start``) and the model's own einsum path everywhere else, as the
-    JAX models' auto rule picks einsum where its kernels are not the
-    choice.  ``dtype`` is the type attention computes in: autocast's on
-    ``device_type`` where autocast is on, else the given one."""
+    CUDA device, float32 or bfloat16, head dim 64 or 128; sinks and
+    packed rows included) and the model's own einsum path everywhere
+    else, as the JAX models' auto rule picks einsum where its kernels are
+    not the choice.  ``dtype`` is the type attention computes in:
+    autocast's on ``device_type`` where autocast is on, else the given
+    one."""
     if flash_attention is not None:
         return bool(flash_attention)
     if torch.is_autocast_enabled(device_type):
         dtype = torch.get_autocast_dtype(device_type)
     return (device_type == "cuda" and dtype in _DTYPE_CODE
-            and head_dim in _HEAD_DIMS and not sink and not q_start)
+            and head_dim in _HEAD_DIMS)
 
 
 def _int32(seed) -> int:
@@ -206,7 +211,7 @@ def reference_flash_attention(q, k, v, sm_scale=None, window: int = 0,
 
 def reference_dkv_dbias(q, k, v, do, lse, delta, sm_scale, window=0,
                         dropout=0.0, seed=0, *, causal=True, bias=None,
-                        kvm=None):
+                        kvm=None, qs=None):
     """The plain version of K3's pass, in float32, from the saved lse and
     delta as the kernels take them (same arguments as
     :func:`flash_bwd_dkv_dbias`): (dk, dv, ds), dk and dv in q's dtype and
@@ -215,8 +220,8 @@ def reference_dkv_dbias(q, k, v, do, lse, delta, sm_scale, window=0,
 
     P is exp(s - lse) of the scaled score plus bias and additive key mask,
     or 1/n over the n keys a fully masked row (lse -1e30) sees by
-    position; dS is 0 on a masked key and P and dS 0 on a pair the
-    position does not attend.  dV takes P times the dropout keep mask over
+    position and document start (``qs``, (B, T) or None); dS is 0 on a
+    masked key and P and dS 0 on a pair the position does not attend.  dV takes P times the dropout keep mask over
     (1 - rate), and dP the same mask."""
     B, T, H, _ = q.shape
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
@@ -231,6 +236,9 @@ def reference_dkv_dbias(q, k, v, do, lse, delta, sm_scale, window=0,
         seen = pos[:, None] >= pos[None, :]
         if window > 0:
             seen = seen & (pos[:, None] - pos[None, :] < window)
+    if qs is not None:
+        seen = seen & (pos[None, None, None, :]
+                       >= qs.long()[:, None, :, None])
     lse = lse.reshape(B, H, T, 1)
     n = seen.sum(-1, keepdim=True).float()
     p = torch.where(lse <= -1e29, 1.0 / n, torch.exp(s - lse))
@@ -287,35 +295,44 @@ def _shape_args(q, sm_scale, causal, window, dropout, seed):
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
-def _option_ptrs(q, bias, kvm):
+def _option_ptrs(q, bias, kvm, qs):
     """Pointers of the (H, T, T) bias and the (B, T) additive key mask, both
-    float32 and contiguous on q's device, or None."""
+    float32, and the (B, T) int32 document starts, each contiguous on q's
+    device, or None."""
     B, T, H, _ = q.shape
-    for name, t, shape in (("bias", bias, (H, T, T)), ("kvm", kvm, (B, T))):
+    for name, t, shape, dtype in (("bias", bias, (H, T, T), torch.float32),
+                                  ("kvm", kvm, (B, T), torch.float32),
+                                  ("qs", qs, (B, T), torch.int32)):
         if t is None:
             continue
-        _check({name: t}, torch.float32, q.device)
+        _check({name: t}, dtype, q.device)
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-    return (None if bias is None else bias.data_ptr(),
-            None if kvm is None else kvm.data_ptr())
+    return tuple(None if t is None else t.data_ptr() for t in (bias, kvm, qs))
 
 
 def flash_fwd(q, k, v, sm_scale, window=0, dropout=0.0, seed=0, *,
-              causal=True, bias=None, kvm=None):
+              causal=True, bias=None, kvm=None, qs=None, sink=None):
     """K1: (o, lse) for contiguous CUDA (B, T, H, hd) q/k/v; lse is
-    (B*H, T) float32.  ``bias`` is a float32 (H, T, T) logit bias, ``kvm``
-    the float32 (B, T) additive key mask (0 or -1e30), each or None.
-    ``flash_fwd.launches`` counts launches."""
+    (B*H, T) float32, the sink included.  ``bias`` is a float32 (H, T, T)
+    logit bias, ``kvm`` the float32 (B, T) additive key mask (0 or -1e30),
+    ``qs`` the int32 (B, T) document starts (causal only), ``sink`` the
+    float32 (H,) sink logits, each or None.  ``flash_fwd.launches`` counts
+    launches."""
     _check({"k": k, "v": v, "q": q}, q.dtype, q.device)
     args = _shape_args(q, sm_scale, causal, window, dropout, seed)
     B, T, H = q.shape[:3]
+    if sink is not None:
+        _check({"sink": sink}, torch.float32, q.device)
+        if tuple(sink.shape) != (H,):
+            raise ValueError(f"sink must be ({H},), got {tuple(sink.shape)}")
     o = torch.empty_like(q)
     lse = torch.empty(B * H, T, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         _run(_lib().nnl_flash_fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             *_option_ptrs(q, bias, kvm), o.data_ptr(), lse.data_ptr(),
-             *args)
+             *_option_ptrs(q, bias, kvm, qs),
+             None if sink is None else sink.data_ptr(), o.data_ptr(),
+             lse.data_ptr(), *args)
     flash_fwd.launches += 1
     return o, lse
 
@@ -328,22 +345,22 @@ def _bwd_inputs(q, k, v, do, lse, delta):
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, sm_scale, window=0, dropout=0.0,
-                 seed=0, *, causal=True, bias=None, kvm=None):
+                 seed=0, *, causal=True, bias=None, kvm=None, qs=None):
     """K2: dq from the saved lse and delta = rowsum(dO * O), both (B*H, T)
-    float32; options as :func:`flash_fwd`.  ``flash_bwd_dq.launches``
-    counts launches."""
+    float32; options as :func:`flash_fwd` (the sink is inside lse).
+    ``flash_bwd_dq.launches`` counts launches."""
     ptrs = _bwd_inputs(q, k, v, do, lse, delta)
     args = _shape_args(q, sm_scale, causal, window, dropout, seed)
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        _run(_lib().nnl_flash_bwd_dq, *ptrs, *_option_ptrs(q, bias, kvm),
-             dq.data_ptr(), *args)
+        _run(_lib().nnl_flash_bwd_dq, *ptrs,
+             *_option_ptrs(q, bias, kvm, qs), dq.data_ptr(), *args)
     flash_bwd_dq.launches += 1
     return dq
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, sm_scale, window=0, dropout=0.0,
-                  seed=0, *, causal=True, bias=None, kvm=None):
+                  seed=0, *, causal=True, bias=None, kvm=None, qs=None):
     """K3: (dk, dv), with the same inputs as :func:`flash_bwd_dq`.
     ``flash_bwd_dkv.launches`` counts K3's launches, those of
     :func:`flash_bwd_dkv_dbias` included."""
@@ -351,8 +368,9 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, sm_scale, window=0, dropout=0.0,
     args = _shape_args(q, sm_scale, causal, window, dropout, seed)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
-        _run(_lib().nnl_flash_bwd_dkv, *ptrs, *_option_ptrs(q, bias, kvm),
-             dk.data_ptr(), dv.data_ptr(), *args)
+        _run(_lib().nnl_flash_bwd_dkv, *ptrs,
+             *_option_ptrs(q, bias, kvm, qs), dk.data_ptr(), dv.data_ptr(),
+             *args)
     flash_bwd_dkv.launches += 1
     return dk, dv
 
@@ -364,7 +382,8 @@ def dbias_rows(T: int) -> int:
 
 
 def flash_bwd_dkv_dbias(q, k, v, do, lse, delta, sm_scale, window=0,
-                        dropout=0.0, seed=0, *, causal=True, bias, kvm=None):
+                        dropout=0.0, seed=0, *, causal=True, bias, kvm=None,
+                        qs=None):
     """K3 and K4 in one call: (dk, dv, dbias), dbias (H, T, T) float32 the
     sum over the batch of P * (dP - delta); the inputs of
     :func:`flash_bwd_dq`, with the bias required.
@@ -381,7 +400,7 @@ def flash_bwd_dkv_dbias(q, k, v, do, lse, delta, sm_scale, window=0,
     if q.device.type == "cpu":
         dk, dv, ds = reference_dkv_dbias(
             q, k, v, do, lse, delta, sm_scale, window, dropout, seed,
-            causal=causal, bias=bias, kvm=kvm)
+            causal=causal, bias=bias, kvm=kvm, qs=qs)
         return dk, dv, ds.sum(0)
     ptrs = _bwd_inputs(q, k, v, do, lse, delta)
     args = _shape_args(q, sm_scale, causal, window, dropout, seed)
@@ -393,7 +412,7 @@ def flash_bwd_dkv_dbias(q, k, v, do, lse, delta, sm_scale, window=0,
             if q.dtype == torch.bfloat16 else None)
     with torch.cuda.device(q.device):
         _run(_lib().nnl_flash_bwd_dkv_dbias, *ptrs,
-             *_option_ptrs(q, bias, kvm), dk.data_ptr(), dv.data_ptr(),
+             *_option_ptrs(q, bias, kvm, qs), dk.data_ptr(), dv.data_ptr(),
              dbias.data_ptr(), None if part is None else part.data_ptr(),
              *args)
     flash_bwd_dkv.launches += 1
@@ -402,12 +421,13 @@ def flash_bwd_dkv_dbias(q, k, v, do, lse, delta, sm_scale, window=0,
 
 
 def flash_bwd_dbias(q, k, v, do, lse, delta, sm_scale, window=0,
-                    dropout=0.0, seed=0, *, causal=True, bias, kvm=None):
+                    dropout=0.0, seed=0, *, causal=True, bias, kvm=None,
+                    qs=None):
     """K4: dbias (H, T, T) float32 alone, from :func:`flash_bwd_dkv_dbias`
     (whose dk and dv it drops, and whose launches it counts)."""
     return flash_bwd_dkv_dbias(q, k, v, do, lse, delta, sm_scale, window,
                                dropout, seed, causal=causal, bias=bias,
-                               kvm=kvm)[2]
+                               kvm=kvm, qs=qs)[2]
 
 
 flash_fwd.launches = 0
@@ -434,31 +454,39 @@ def kernel_drop_keep(seeds, n_bh: int, n_q: int, n_k: int, rate: float,
 class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, kvm, sm_scale, causal, window, dropout,
-                seed):
+    def forward(ctx, q, k, v, bias, kvm, qs, sink, sm_scale, causal, window,
+                dropout, seed):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        kw = dict(causal=causal, bias=bias, kvm=kvm)
-        o, lse = flash_fwd(q, k, v, sm_scale, window, dropout, seed, **kw)
-        ctx.save_for_backward(q, k, v, o, lse, bias, kvm)
+        kw = dict(causal=causal, bias=bias, kvm=kvm, qs=qs)
+        o, lse = flash_fwd(q, k, v, sm_scale, window, dropout, seed,
+                           sink=sink, **kw)
+        ctx.save_for_backward(q, k, v, o, lse, bias, kvm, qs, sink)
         ctx.args = (sm_scale, window, dropout, seed)
         ctx.causal = causal
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse, bias, kvm = ctx.saved_tensors
+        q, k, v, o, lse, bias, kvm, qs, sink = ctx.saved_tensors
         do = do.to(q.dtype).contiguous()
         B, T, H, _ = q.shape
         delta = ((do.float() * o.float()).sum(-1)      # (B, T, H)
                  .transpose(1, 2).reshape(B * H, T).contiguous())
-        kw = dict(causal=ctx.causal, bias=bias, kvm=kvm)
+        kw = dict(causal=ctx.causal, bias=bias, kvm=kvm, qs=qs)
         inputs = (q, k, v, do, lse, delta, *ctx.args)
         dq = flash_bwd_dq(*inputs, **kw)
         if ctx.needs_input_grad[3]:
             dk, dv, dbias = flash_bwd_dkv_dbias(*inputs, **kw)
         else:
             (dk, dv), dbias = flash_bwd_dkv(*inputs, **kw), None
-        return dq, dk, dv, dbias, None, None, None, None, None, None
+        dsink = None
+        if ctx.needs_input_grad[6]:
+            # the sink's column has v = 0: dsink_h = -sum_{b,t}
+            # exp(sink_h - lse) * delta, from the residuals alone
+            dsink = -(torch.exp(sink[None, :, None] - lse.view(B, H, T))
+                      * delta.view(B, H, T)).sum((0, 2))
+        return (dq, dk, dv, dbias, None, None, dsink, None, None, None, None,
+                None)
 
 
 def flash_attention(q, k, v, sm_scale=None, window: int = 0,
@@ -475,10 +503,13 @@ def flash_attention(q, k, v, sm_scale=None, window: int = 0,
     ValueError, as in JAX.  ``kv_mask`` (B, T) bool: False keys are never
     attended.  ``dropout`` in (0, 1) drops attention probabilities with
     the hash mask of seed ``dropout_seed`` (an int32, or anything ``int()``
-    takes).  T is any length.  On CUDA tensors the kernels take float32 or
-    bfloat16 and head dims 64 and 128 (another raises ValueError); ``sink``
-    and ``q_start`` raise NotImplementedError there (the CPU plain version
-    takes them).
+    takes).  ``sink`` (H,) is a per-head logit that joins each row's
+    softmax normalizer and whose mass is dropped, with its gradient.
+    ``q_start`` (B, T) integer, causal only, holds each query's document
+    start in packed rows: query t sees key s only if s >= q_start[b, t]
+    (any values; ``arange(T) - positions`` for contiguous documents).  T
+    is any length.  On CUDA tensors the kernels take float32 or bfloat16
+    and head dims 64 and 128 (another raises ValueError).
     """
     B, T, H, hd = q.shape
     if k.shape != q.shape or v.shape != q.shape:
@@ -507,6 +538,14 @@ def flash_attention(q, k, v, sm_scale=None, window: int = 0,
     if kv_mask is not None and tuple(kv_mask.shape) != (B, T):
         raise ValueError(f"kv_mask must be (B, T) = ({B}, {T}), "
                          f"got {tuple(kv_mask.shape)}")
+    if sink is not None and tuple(sink.shape) != (H,):
+        raise ValueError(f"sink must be ({H},), got {tuple(sink.shape)}")
+    if q_start is not None:
+        if not causal:
+            raise ValueError("q_start (packed sequences) requires causal")
+        if tuple(q_start.shape) != (B, T):
+            raise ValueError(f"q_start must be (B, T) = ({B}, {T}), "
+                             f"got {tuple(q_start.shape)}")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(hd)
     if q.device.type == "cpu":
@@ -516,13 +555,13 @@ def flash_attention(q, k, v, sm_scale=None, window: int = 0,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, "
                          f"got {q.device}")
-    for name, val in (("sink", sink), ("q_start", q_start)):
-        if val is not None:
-            raise NotImplementedError(f"flash_attention: {name} is {_TODO}")
     kvm = (None if kv_mask is None else torch.zeros(
         B, T, dtype=torch.float32, device=q.device).masked_fill_(
         ~kv_mask.bool(), _NEG_INF))
+    qs = (None if q_start is None
+          else q_start.to(device=q.device, dtype=torch.int32).contiguous())
     return _FlashAttention.apply(
-        q, k, v, None if bias is None else bias.contiguous(), kvm,
+        q, k, v, None if bias is None else bias.contiguous(), kvm, qs,
+        None if sink is None else sink.float().contiguous(),
         float(sm_scale), bool(causal), int(window), float(dropout),
         _int32(dropout_seed or 0))

@@ -10,9 +10,11 @@ the LSTM's ``w_ih``/``w_hh``/``b_ih``/``b_hh``, already in the port's
 layout) keeps its name.  So the classifier's tree (``dec/attn1``,
 ``dec/attn2``, ``dec/fc/...``), collab's (``user_emb/embedding``, ...),
 structured's (``embeddings_{i}/emb/embedding``, ``cont_bn``, ``head/...``),
-an ensemble's (``models_{i}/...``) and a RetinaNet's (``body/...``,
-``fpn/P5_1``, ``regressor/conv1``, ..., ``classifier/output``) load as they
-are.  A flax
+an ensemble's (``models_{i}/...``), a RetinaNet's (``body/...``,
+``fpn/P5_1``, ``regressor/conv1``, ..., ``classifier/output``) and a
+modern decoder's (the q/k norms ``attn/q_norm``, ``attn/k_norm``, the
+gated MLP's ``mlp/fc_gate``, an untied ``lm_head``; no ``pos_embed`` with
+rotary positions) load as they are.  A flax
 ``carry`` collection (the AWD-LSTM encoder's (h, c)) goes into the
 module's buffers of the same names, and a ``batch_stats`` collection
 (``mean``, ``var`` of each BatchNorm) into its ``running_mean`` and

@@ -1,8 +1,8 @@
 """The models' auto flash rule (``ops.flash_attention.use_flash``): with
 ``flash_attention=None`` a full-sequence forward takes the flash path only
 where the CUDA kernels take the call (a CUDA input, float32 or bfloat16,
-head dim 64 or 128, no sink, no q_start) and the model's einsum path
-otherwise, as the JAX models' auto rule picks einsum where its kernels are
+head dim 64 or 128; sinks and packed rows included) and the model's einsum
+path otherwise, as the JAX models' auto rule picks einsum where its kernels are
 not the choice.  A CUDA input is faked by passing the device type; True
 and False are taken as given, and True on a head dim the kernels do not
 take raises in the kernels' wrapper.  CPU only, tiny models."""
@@ -24,7 +24,8 @@ LM = dict(vocab_size=16, n_layers=1, max_len=8, device="cpu")
     ({}, "cuda", False),                            # default: hd 32
     (dict(n_heads=4), "cuda", True),                # hd 64
     (dict(n_heads=2), "cuda", True),                # hd 128
-    (dict(n_heads=4, sinks=True), "cuda", False),   # sinks
+    (dict(n_heads=4, sinks=True), "cuda", True),    # sinks (K1's sink)
+    (dict(n_heads=4, reset_at=0), "cuda", True),    # packed (q_start)
     (dict(n_heads=4), "cpu", False),                # a CPU input
     (dict(n_heads=4, flash_attention=False), "cuda", False),
     (dict(flash_attention=True), "cuda", True),     # as asked, at hd 32
@@ -43,17 +44,15 @@ def test_seq2seq_auto_rule(n_heads, want):
     assert m.uses_flash("cpu") is False
 
 
-@pytest.mark.parametrize("dtype, hd, opts, want", [
-    (torch.bfloat16, 64, {}, True), (torch.float32, 128, {}, True),
-    (torch.float16, 64, {}, False), (torch.bfloat16, 32, {}, False),
-    (torch.bfloat16, 64, dict(sink=True), False),
-    (torch.bfloat16, 64, dict(q_start=True), False)])
-def test_use_flash_auto_where_the_kernels_take_the_call(dtype, hd, opts,
-                                                        want):
-    assert fa.use_flash(None, "cuda", dtype, hd, **opts) is want
-    assert fa.use_flash(None, "cpu", dtype, hd, **opts) is False
-    assert fa.use_flash(True, "cuda", dtype, hd, **opts) is True
-    assert fa.use_flash(False, "cuda", dtype, hd, **opts) is False
+@pytest.mark.parametrize("dtype, hd, want", [
+    (torch.bfloat16, 64, True), (torch.float32, 128, True),
+    (torch.float16, 64, False), (torch.bfloat16, 32, False),
+    (torch.bfloat16, 128, True), (torch.float32, 64, True)])
+def test_use_flash_auto_where_the_kernels_take_the_call(dtype, hd, want):
+    assert fa.use_flash(None, "cuda", dtype, hd) is want
+    assert fa.use_flash(None, "cpu", dtype, hd) is False
+    assert fa.use_flash(True, "cuda", dtype, hd) is True
+    assert fa.use_flash(False, "cuda", dtype, hd) is False
 
 
 def test_forced_flash_at_hd32_raises_in_the_wrapper():

@@ -317,8 +317,13 @@ def test_from_dataobj_and_fused_ce():
     assert pm.lstm_kernel is None
     pm.lstm_kernel = False
     assert all(layer.lstm_kernel is False for layer in pm.enc.lstms())
-    with pytest.raises(NotImplementedError, match="chunked_ce"):
-        text.LanguageModelNet(V, fused_ce=True, device="cpu")
+    # fused_ce: the decoder's input, the tied weight and the encoder
+    # output, for FusedRegSeqCrossEntropyLoss (the chunked CE)
+    fm = text.LanguageModelNet(V, emb_dim=E, hidden_size=H, fused_ce=True,
+                               device="cpu")
+    h, tied, enc_out = fm(torch.zeros(2, 5, dtype=torch.long))
+    assert h.shape == enc_out.shape == (2, 5, E)
+    assert tied is fm.enc.word_embed.weight
 
 
 # ------------------------------------------------------------ dropout

@@ -272,7 +272,8 @@ def test_transforms_and_image_learner():
 def test_port_modules_leave_jax_unloaded():
     """Importing every module of the port and chip_smoke.py loads neither
     jax nor the JAX package (jax is importable here, and not blocked), nor
-    pandas, sklearn, matplotlib or cv2, which the card's machine lacks."""
+    pandas, sklearn, matplotlib, cv2, transformers or safetensors, which
+    the card's machine lacks."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import neuralnetworklibrary_tpu_torch as pkg
@@ -281,7 +282,8 @@ def test_port_modules_leave_jax_unloaded():
         for name in names + ["chip_smoke"]:
             importlib.import_module(name)
         roots = ("jax", "flax", "neuralnetworklibrary_tpu", "pandas",
-                 "sklearn", "matplotlib", "cv2")
+                 "sklearn", "matplotlib", "cv2", "transformers",
+                 "safetensors")
         bad = [m for m in sys.modules if m.split(".")[0] in roots]
         assert not bad, bad
         for app in ("vision", "text", "collab", "structured", "detection"):
