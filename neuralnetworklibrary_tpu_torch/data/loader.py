@@ -23,6 +23,8 @@ from typing import Any, Callable, Iterator, Sequence
 
 import numpy as np
 
+from neuralnetworklibrary_tpu_torch.utils import tracing
+
 
 @dataclass
 class Batch:
@@ -112,9 +114,22 @@ class DataLoader:
         self.epoch += 1
 
     def __iter__(self) -> Iterator[Batch]:
+        it = self._iter_batches()
         if self.prefetch and self.prefetch > 0:
-            return _prefetched(self._iter_batches(), self.prefetch)
-        return self._iter_batches()
+            it = _prefetched(it, self.prefetch)
+        return _spanned(it)
+
+
+def _spanned(it: Iterator) -> Iterator:
+    """``it``, each item's making (or wait on the prefetch queue) in a
+    ``loader.next`` span on the consumer's thread."""
+    end = object()
+    while True:
+        with tracing.span("loader.next"):
+            item = next(it, end)
+        if item is end:
+            return
+        yield item
 
 
 def _prefetched(it: Iterator, size: int) -> Iterator:

@@ -72,6 +72,7 @@ from neuralnetworklibrary_tpu_torch.core.schedules import (
 )
 from neuralnetworklibrary_tpu_torch.data.loader import Batch
 from neuralnetworklibrary_tpu_torch.nn.transformer import resolve_device
+from neuralnetworklibrary_tpu_torch.utils import tracing
 
 _EMA_DECAY = 0.98  # moving_avg_loss decay (Learner.py:610)
 _TODO = "is not ported yet (ROADMAP Queue 1)"
@@ -280,8 +281,9 @@ class Learner:
                 t = t.pin_memory()
             return t.to(self.device, non_blocking=True)
 
-        return (tuple(put(x) for x in batch.xs), put(batch.y),
-                put(batch.mask))
+        with tracing.span("learner.h2d"):
+            return (tuple(put(x) for x in batch.xs), put(batch.y),
+                    put(batch.mask))
 
     def _device_batches(self, dl):
         """Yield (batch, device tensors), copying batch k+1 before batch k
@@ -347,19 +349,25 @@ class Learner:
             p.grad = None
         self._global_step += 1
         self.model.train()
-        xs = self._pipeline(xs, True)
-        with self._autocast():
-            y_pred = self.model(*xs, **self._model_kwargs(True))
-        loss = self._apply_loss(_to_f32(y_pred), y, mask)
+        with tracing.span("learner.forward", device=True):
+            xs = self._pipeline(xs, True)
+            with self._autocast():
+                y_pred = self.model(*xs, **self._model_kwargs(True))
+        with tracing.span("learner.loss", device=True):
+            loss = self._apply_loss(_to_f32(y_pred), y, mask)
         # the backward needs the float32 copies the loss took, not the
         # model's own outputs (an LM's (B, T, V) bf16 logits): free them
         del y_pred
-        loss.backward()
+        with tracing.span("learner.backward", device=True):
+            loss.backward()
         grads = {path: p.grad for path, p in self.params.items()
                  if p.grad is not None}
-        self.optimizer.apply(self.params, grads, self.opt_state,
-                             self.partition, trainable, lr, mom=mom,
-                             beta1=b1, beta2=b2, wd_groups=wd, clip=clip)
+        with tracing.span("learner.optimizer", device=True) as sp:
+            if sp is not None:   # Adam's bytes follow the trained elements
+                sp.data["elements"] = sum(g.numel() for g in grads.values())
+            self.optimizer.apply(self.params, grads, self.opt_state,
+                                 self.partition, trainable, lr, mom=mom,
+                                 beta1=b1, beta2=b2, wd_groups=wd, clip=clip)
         loss = loss.detach()
         self._ema.mul_(_EMA_DECAY).add_(loss, alpha=1.0 - _EMA_DECAY)
         return loss
@@ -368,9 +376,10 @@ class Learner:
                         betas_batch=None):
         """One optimizer update (Learner.py:490-516).  Returns the loss as
         a device scalar (``float()`` it only when you need to sync)."""
-        xs, y, mask = self._to_device(batch)
-        return self._step(xs, y, mask, batch.n_valid, lr_batch, mom_batch,
-                          betas_batch)
+        with tracing.span("learner.step", step=self._global_step + 1):
+            xs, y, mask = self._to_device(batch)
+            return self._step(xs, y, mask, batch.n_valid, lr_batch,
+                              mom_batch, betas_batch)
 
     # ------------------------------------------------ evaluate / predict
 
@@ -567,8 +576,10 @@ class Learner:
                     self.mom_sched.append(mom_i)
                 if betas_i is not None:
                     self.betas_sched.append(betas_i)
-                loss = self._step(xs, y, mask, batch.n_valid, lr_sched[i],
-                                  mom_i, betas_i)
+                with tracing.span("learner.step",
+                                  step=self._global_step + 1):
+                    loss = self._step(xs, y, mask, batch.n_valid,
+                                      lr_sched[i], mom_i, betas_i)
                 self.loss_sched.append(loss)
                 i += 1
                 if print_batch is True or (isinstance(print_batch, int)
@@ -671,8 +682,10 @@ class Learner:
         while i < N:
             for batch, (xs, y, mask) in self._device_batches(
                     self.data.train_dl):
-                loss = self._step(xs, y, mask, batch.n_valid, lr_sched[i],
-                                  momentum, betas)
+                with tracing.span("learner.step",
+                                  step=self._global_step + 1):
+                    loss = self._step(xs, y, mask, batch.n_valid,
+                                      lr_sched[i], momentum, betas)
                 self.loss_sched.append(float(loss))
                 self.lr_sched.append(lr_sched[i])
                 i += 1

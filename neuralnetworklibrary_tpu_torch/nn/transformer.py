@@ -63,6 +63,7 @@ from neuralnetworklibrary_tpu_torch.ops.flash_attention import (
     use_flash,
 )
 from neuralnetworklibrary_tpu_torch.ops.paged_attention import paged_attention
+from neuralnetworklibrary_tpu_torch.utils import tracing
 
 _NEG_INF = -1e30
 _TODO = "is not ported yet (ROADMAP Queue 1)"
@@ -759,9 +760,19 @@ class TransformerLM(nn.Module):
                  else blk(*args))
         h = self.ln_f(h)
         head = self.word_embed if self.lm_head is None else self.lm_head
-        if self.fused_ce and not decode:
-            return h, head
-        return F.linear(h, head), h
+        if (train and tracing.enabled() and torch.is_grad_enabled()
+                and h.requires_grad):
+            # h's gradient is ready once the loss's backward, the cast's
+            # and the head's (dX and the tied dW, one node) are done
+            h.register_hook(_head_input_grad)
+        with tracing.span("lm.head", device=True):
+            if self.fused_ce and not decode:
+                return h, head
+            return F.linear(h, head), h
+
+
+def _head_input_grad(grad):
+    tracing.mark("lm.head.grad")
 
 
 def init_cache(model: TransformerLM, bs: int,

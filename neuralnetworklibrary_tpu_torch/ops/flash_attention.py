@@ -51,6 +51,8 @@ import math
 
 import torch
 
+from neuralnetworklibrary_tpu_torch.utils import tracing
+
 _NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
@@ -467,26 +469,27 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse, bias, kvm, qs, sink = ctx.saved_tensors
-        do = do.to(q.dtype).contiguous()
-        B, T, H, _ = q.shape
-        delta = ((do.float() * o.float()).sum(-1)      # (B, T, H)
-                 .transpose(1, 2).reshape(B * H, T).contiguous())
-        kw = dict(causal=ctx.causal, bias=bias, kvm=kvm, qs=qs)
-        inputs = (q, k, v, do, lse, delta, *ctx.args)
-        dq = flash_bwd_dq(*inputs, **kw)
-        if ctx.needs_input_grad[3]:
-            dk, dv, dbias = flash_bwd_dkv_dbias(*inputs, **kw)
-        else:
-            (dk, dv), dbias = flash_bwd_dkv(*inputs, **kw), None
-        dsink = None
-        if ctx.needs_input_grad[6]:
-            # the sink's column has v = 0: dsink_h = -sum_{b,t}
-            # exp(sink_h - lse) * delta, from the residuals alone
-            dsink = -(torch.exp(sink[None, :, None] - lse.view(B, H, T))
-                      * delta.view(B, H, T)).sum((0, 2))
-        return (dq, dk, dv, dbias, None, None, dsink, None, None, None, None,
-                None)
+        with tracing.span("attention.bwd"):
+            q, k, v, o, lse, bias, kvm, qs, sink = ctx.saved_tensors
+            do = do.to(q.dtype).contiguous()
+            B, T, H, _ = q.shape
+            delta = ((do.float() * o.float()).sum(-1)      # (B, T, H)
+                     .transpose(1, 2).reshape(B * H, T).contiguous())
+            kw = dict(causal=ctx.causal, bias=bias, kvm=kvm, qs=qs)
+            inputs = (q, k, v, do, lse, delta, *ctx.args)
+            dq = flash_bwd_dq(*inputs, **kw)
+            if ctx.needs_input_grad[3]:
+                dk, dv, dbias = flash_bwd_dkv_dbias(*inputs, **kw)
+            else:
+                (dk, dv), dbias = flash_bwd_dkv(*inputs, **kw), None
+            dsink = None
+            if ctx.needs_input_grad[6]:
+                # the sink's column has v = 0: dsink_h = -sum_{b,t}
+                # exp(sink_h - lse) * delta, from the residuals alone
+                dsink = -(torch.exp(sink[None, :, None] - lse.view(B, H, T))
+                          * delta.view(B, H, T)).sum((0, 2))
+            return (dq, dk, dv, dbias, None, None, dsink, None, None, None,
+                    None, None)
 
 
 def flash_attention(q, k, v, sm_scale=None, window: int = 0,
@@ -511,57 +514,58 @@ def flash_attention(q, k, v, sm_scale=None, window: int = 0,
     is any length.  On CUDA tensors the kernels take float32 or bfloat16
     and head dims 64 and 128 (another raises ValueError).
     """
-    B, T, H, hd = q.shape
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q, k, v must share one (B, T, H, hd) shape, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
-    if window > 0 and not causal:
-        raise ValueError("window banding requires causal attention")
-    if dropout > 0.0:
-        if not 0.0 < dropout < 1.0:
-            raise ValueError(f"dropout must lie in (0, 1), got {dropout}")
-        if dropout_seed is None:
-            raise ValueError("dropout > 0 needs dropout_seed= (an int32)")
-    if bias is not None:
-        if bias.ndim == 4:
-            if bias.shape[0] != 1:
-                raise ValueError(
-                    "flash_attention bias must be batch-shared: got leading "
-                    f"dim {bias.shape[0]} (use the einsum path for "
-                    "per-batch biases)")
-            bias = bias[0]
-        if tuple(bias.shape) != (H, T, T):
-            raise ValueError(f"bias must be (H, T, T) = ({H}, {T}, {T}), "
-                             f"got {tuple(bias.shape)}")
-        bias = bias.float()
-    if kv_mask is not None and tuple(kv_mask.shape) != (B, T):
-        raise ValueError(f"kv_mask must be (B, T) = ({B}, {T}), "
-                         f"got {tuple(kv_mask.shape)}")
-    if sink is not None and tuple(sink.shape) != (H,):
-        raise ValueError(f"sink must be ({H},), got {tuple(sink.shape)}")
-    if q_start is not None:
-        if not causal:
-            raise ValueError("q_start (packed sequences) requires causal")
-        if tuple(q_start.shape) != (B, T):
-            raise ValueError(f"q_start must be (B, T) = ({B}, {T}), "
-                             f"got {tuple(q_start.shape)}")
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(hd)
-    if q.device.type == "cpu":
-        return reference_flash_attention(
-            q, k, v, sm_scale, window, causal, dropout, dropout_seed,
-            bias=bias, sink=sink, kv_mask=kv_mask, q_start=q_start)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu tensors, "
-                         f"got {q.device}")
-    kvm = (None if kv_mask is None else torch.zeros(
-        B, T, dtype=torch.float32, device=q.device).masked_fill_(
-        ~kv_mask.bool(), _NEG_INF))
-    qs = (None if q_start is None
-          else q_start.to(device=q.device, dtype=torch.int32).contiguous())
-    return _FlashAttention.apply(
-        q, k, v, None if bias is None else bias.contiguous(), kvm, qs,
-        None if sink is None else sink.float().contiguous(),
-        float(sm_scale), bool(causal), int(window), float(dropout),
-        _int32(dropout_seed or 0))
+    with tracing.span("attention.fwd"):
+        B, T, H, hd = q.shape
+        if k.shape != q.shape or v.shape != q.shape:
+            raise ValueError(f"q, k, v must share one (B, T, H, hd) shape, "
+                             f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                             f"{tuple(v.shape)}")
+        if window > 0 and not causal:
+            raise ValueError("window banding requires causal attention")
+        if dropout > 0.0:
+            if not 0.0 < dropout < 1.0:
+                raise ValueError(f"dropout must lie in (0, 1), got {dropout}")
+            if dropout_seed is None:
+                raise ValueError("dropout > 0 needs dropout_seed= (an int32)")
+        if bias is not None:
+            if bias.ndim == 4:
+                if bias.shape[0] != 1:
+                    raise ValueError(
+                        "flash_attention bias must be batch-shared: got "
+                        f"leading dim {bias.shape[0]} (use the einsum path "
+                        "for per-batch biases)")
+                bias = bias[0]
+            if tuple(bias.shape) != (H, T, T):
+                raise ValueError(f"bias must be (H, T, T) = ({H}, {T}, {T}), "
+                                 f"got {tuple(bias.shape)}")
+            bias = bias.float()
+        if kv_mask is not None and tuple(kv_mask.shape) != (B, T):
+            raise ValueError(f"kv_mask must be (B, T) = ({B}, {T}), "
+                             f"got {tuple(kv_mask.shape)}")
+        if sink is not None and tuple(sink.shape) != (H,):
+            raise ValueError(f"sink must be ({H},), got {tuple(sink.shape)}")
+        if q_start is not None:
+            if not causal:
+                raise ValueError("q_start (packed sequences) requires causal")
+            if tuple(q_start.shape) != (B, T):
+                raise ValueError(f"q_start must be (B, T) = ({B}, {T}), "
+                                 f"got {tuple(q_start.shape)}")
+        if sm_scale is None:
+            sm_scale = 1.0 / math.sqrt(hd)
+        if q.device.type == "cpu":
+            return reference_flash_attention(
+                q, k, v, sm_scale, window, causal, dropout, dropout_seed,
+                bias=bias, sink=sink, kv_mask=kv_mask, q_start=q_start)
+        if q.device.type != "cuda":
+            raise ValueError(f"flash_attention runs on cuda or cpu tensors, "
+                             f"got {q.device}")
+        kvm = (None if kv_mask is None else torch.zeros(
+            B, T, dtype=torch.float32, device=q.device).masked_fill_(
+            ~kv_mask.bool(), _NEG_INF))
+        qs = (None if q_start is None
+              else q_start.to(device=q.device, dtype=torch.int32).contiguous())
+        return _FlashAttention.apply(
+            q, k, v, None if bias is None else bias.contiguous(), kvm, qs,
+            None if sink is None else sink.float().contiguous(),
+            float(sm_scale), bool(causal), int(window), float(dropout),
+            _int32(dropout_seed or 0))

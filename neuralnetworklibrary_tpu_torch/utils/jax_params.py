@@ -26,6 +26,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from neuralnetworklibrary_tpu_torch.utils import tracing
+
 
 def _flatten(tree, prefix=""):
     for key, val in tree.items():
@@ -80,50 +82,53 @@ def load_jax_params(model: torch.nn.Module, tree, carry=None,
     model has no parameter (or buffer) for, or a shape mismatch.  Returns
     the model.
     """
-    params = dict(model.named_parameters())
-    flat = {}
-    for name, arr in _flatten(tree):
-        arr = np.asarray(arr)
-        if name.endswith(".kernel") and arr.ndim == 2:
-            arr = arr.T
-        elif name.endswith(".kernel") and arr.ndim == 4:
-            arr = arr.transpose(3, 2, 0, 1)
-        flat[_torch_name(name)] = arr
-    _check_names("params", params, flat)
-    for name, arr in flat.items():
-        if tuple(arr.shape) != tuple(params[name].shape):
-            raise ValueError(f"{name}: tree shape {tuple(arr.shape)} != "
-                             f"model shape {tuple(params[name].shape)}")
-    state = {}
-    if carry is not None:
-        buffers = dict(model.named_buffers())
-        state = {name: np.asarray(arr) for name, arr in _flatten(carry)}
-        _check_names("carry", buffers, state)
-        for name, arr in state.items():
-            if arr.shape[1:] != tuple(buffers[name].shape[1:]):
-                raise ValueError(f"{name}: carry shape {tuple(arr.shape)} "
-                                 f"does not end in the model's "
-                                 f"{tuple(buffers[name].shape[1:])}")
-    stats = {}
-    if batch_stats is not None:
-        bn = _bn_buffers(model)
-        stats = {name: np.asarray(arr) for name, arr in _flatten(batch_stats)}
-        _check_names("batch_stats", bn, stats)
-        for name, arr in stats.items():
-            if tuple(arr.shape) != tuple(bn[name].shape):
-                raise ValueError(f"{name}: batch_stats shape "
-                                 f"{tuple(arr.shape)} != model shape "
-                                 f"{tuple(bn[name].shape)}")
-    with torch.no_grad():
-        for name, arr in stats.items():
-            bn[name].copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
+    with tracing.span("convert.load_jax_params"):
+        params = dict(model.named_parameters())
+        flat = {}
+        for name, arr in _flatten(tree):
+            arr = np.asarray(arr)
+            if name.endswith(".kernel") and arr.ndim == 2:
+                arr = arr.T
+            elif name.endswith(".kernel") and arr.ndim == 4:
+                arr = arr.transpose(3, 2, 0, 1)
+            flat[_torch_name(name)] = arr
+        _check_names("params", params, flat)
         for name, arr in flat.items():
-            params[name].copy_(torch.from_numpy(
-                np.array(arr, dtype=np.float32)))
-        for name, arr in state.items():
-            head, _, leaf = name.rpartition(".")
-            mod = model.get_submodule(head)
-            own = getattr(mod, leaf)
-            setattr(mod, leaf, torch.from_numpy(np.array(arr)).to(
-                own.device, own.dtype))
-    return model
+            if tuple(arr.shape) != tuple(params[name].shape):
+                raise ValueError(f"{name}: tree shape {tuple(arr.shape)} != "
+                                 f"model shape {tuple(params[name].shape)}")
+        state = {}
+        if carry is not None:
+            buffers = dict(model.named_buffers())
+            state = {name: np.asarray(arr) for name, arr in _flatten(carry)}
+            _check_names("carry", buffers, state)
+            for name, arr in state.items():
+                if arr.shape[1:] != tuple(buffers[name].shape[1:]):
+                    raise ValueError(f"{name}: carry shape {tuple(arr.shape)} "
+                                     f"does not end in the model's "
+                                     f"{tuple(buffers[name].shape[1:])}")
+        stats = {}
+        if batch_stats is not None:
+            bn = _bn_buffers(model)
+            stats = {name: np.asarray(arr)
+                     for name, arr in _flatten(batch_stats)}
+            _check_names("batch_stats", bn, stats)
+            for name, arr in stats.items():
+                if tuple(arr.shape) != tuple(bn[name].shape):
+                    raise ValueError(f"{name}: batch_stats shape "
+                                     f"{tuple(arr.shape)} != model shape "
+                                     f"{tuple(bn[name].shape)}")
+        with torch.no_grad():
+            for name, arr in stats.items():
+                bn[name].copy_(torch.from_numpy(
+                    np.array(arr, dtype=np.float32)))
+            for name, arr in flat.items():
+                params[name].copy_(torch.from_numpy(
+                    np.array(arr, dtype=np.float32)))
+            for name, arr in state.items():
+                head, _, leaf = name.rpartition(".")
+                mod = model.get_submodule(head)
+                own = getattr(mod, leaf)
+                setattr(mod, leaf, torch.from_numpy(np.array(arr)).to(
+                    own.device, own.dtype))
+        return model

@@ -33,6 +33,7 @@ from neuralnetworklibrary_tpu_torch.nn.transformer import (
     TransformerLM,
     rope_scaling_tuple,
 )
+from neuralnetworklibrary_tpu_torch.utils import tracing
 from neuralnetworklibrary_tpu_torch.utils.jax_params import load_jax_params
 from neuralnetworklibrary_tpu_torch.utils.safetensors_io import (
     load_safetensors_auto,
@@ -135,12 +136,13 @@ def load_qwen3(state_dict, n_layers: int, n_heads: int, d_model: int,
     """HF Qwen3ForCausalLM -> (model, params), as :func:`load_llama` with
     ``qk_norm`` (the q_norm / k_norm leaves beside the fused qkv) and the
     config's ``head_dim``."""
-    return _build(convert_llama_state_dict(state_dict, n_layers),
-                  vocab_size=vocab_size, d_model=d_model, n_heads=n_heads,
-                  n_kv_heads=n_kv_heads, n_layers=n_layers, d_ff=d_ff,
-                  max_len=max_len, drop=drop, rope_base=rope_base,
-                  norm_eps=norm_eps, head_dim=head_dim, qk_norm=True,
-                  **model_kw)
+    with tracing.span("convert.load_qwen3"):
+        return _build(convert_llama_state_dict(state_dict, n_layers),
+                      vocab_size=vocab_size, d_model=d_model, n_heads=n_heads,
+                      n_kv_heads=n_kv_heads, n_layers=n_layers, d_ff=d_ff,
+                      max_len=max_len, drop=drop, rope_base=rope_base,
+                      norm_eps=norm_eps, head_dim=head_dim, qk_norm=True,
+                      **model_kw)
 
 
 def load_llama_dir(path: str, max_len: int = 0, **model_kw):
