@@ -37,7 +37,8 @@ name and power limit from nvidia-smi):
           flash path against the einsum path; (b) the bench.py
           configuration (bf16, B 8, T 1024, Adam2, lr 1e-4, wd 1e-6, drop 0),
           10 train1minibatch steps on one fixed batch, then one evaluate.
-          Flash kernel launches are counted over (b).
+          Flash kernel launches, and the padded head's products (one a
+          step and one an eval batch), are counted over (b).
 - auto_flash: the models' auto rule: the default TransformerLM (hd 32)
           trains a bf16 step through the Learner on the einsum path (no
           flash launch), at hd 64 on the flash path, and so do a
@@ -1785,6 +1786,7 @@ def phase_train(seed, profile=False):
         flash_bwd_dq,
         flash_fwd,
     )
+    from neuralnetworklibrary_tpu_torch.ops.padded_head import padded_head
     from neuralnetworklibrary_tpu_torch.utils.jax_params import (
         load_jax_params,
     )
@@ -1835,7 +1837,8 @@ def phase_train(seed, profile=False):
         learner.init_optimizer(wd=1e-6)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for fn in (flash_fwd, flash_bwd_dq, flash_bwd_dkv):
+        counted = (flash_fwd, flash_bwd_dq, flash_bwd_dkv, padded_head)
+        for fn in counted:
             fn.launches = 0
         losses, step_s = [], []
         for _ in range(10):
@@ -1845,8 +1848,7 @@ def phase_train(seed, profile=False):
             step_s.append(time.perf_counter() - t0)
         val_loss = learner.evaluate("val")[0]
         torch.cuda.synchronize()
-        launches = {fn.__name__: fn.launches
-                    for fn in (flash_fwd, flash_bwd_dq, flash_bwd_dkv)}
+        launches = {fn.__name__: fn.launches for fn in counted}
         peak = torch.cuda.max_memory_allocated()
         if profile:
             profile_step(lambda: learner.train1minibatch(batch, 1e-4))
@@ -1856,10 +1858,12 @@ def phase_train(seed, profile=False):
     if not np.isfinite(val_loss):
         fail(f"evaluate gave {val_loss}")
     n_eval = len(data.val_dl)
+    # the 50,257-row head runs padded (ops/padded_head.py) in every
+    # full-sequence forward: one product a step and one an eval batch
     want = {"flash_fwd": L * (10 + n_eval), "flash_bwd_dq": L * 10,
-            "flash_bwd_dkv": L * 10}
+            "flash_bwd_dkv": L * 10, "padded_head": 10 + n_eval}
     if launches != want:
-        fail(f"flash kernel launches {launches} != {want}")
+        fail(f"flash kernel and padded head launches {launches} != {want}")
     steady = statistics.median(step_s[1:])
     emit({"phase": "train", "model": "gpt2-124m", "setup_s": setup_s,
           "f32_flash_vs_einsum_loss_abs_err": loss_err,

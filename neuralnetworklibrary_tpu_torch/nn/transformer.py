@@ -62,6 +62,10 @@ from neuralnetworklibrary_tpu_torch.ops.flash_attention import (
     flash_attention,
     use_flash,
 )
+from neuralnetworklibrary_tpu_torch.ops.padded_head import (
+    padded_head,
+    pads_head,
+)
 from neuralnetworklibrary_tpu_torch.ops.paged_attention import paged_attention
 from neuralnetworklibrary_tpu_torch.utils import tracing
 
@@ -556,8 +560,12 @@ class TransformerLM(nn.Module):
     and a decoder tied to the token embedding (or ``lm_head`` with
     ``tied_decoder=False``).  Returns (logits, h) like the JAX model, or
     (h, head) with ``fused_ce`` for :class:`FusedSeqCrossEntropyLoss` (the
-    (B, T, V) logits never exist); decode always returns logits.  ``drop``
-    (default 0.1, as in JAX) acts in calls with ``train=True``.
+    (B, T, V) logits never exist); decode always returns logits.  A
+    full-sequence CUDA forward whose vocabulary leaves a bf16 row
+    unaligned (GPT-2's 50,257) computes them against the head padded to a
+    multiple of 64 rows (``ops.padded_head``): the same values, in a view
+    whose row stride is the padded vocabulary.  ``drop`` (default 0.1, as
+    in JAX) acts in calls with ``train=True``.
 
     ``head_dim`` (0: d_model // n_heads), ``qk_norm``, ``rope_base``,
     ``rope_scaling`` (a :func:`rope_scaling_tuple`) and ``rotary_dim`` go
@@ -768,6 +776,8 @@ class TransformerLM(nn.Module):
         with tracing.span("lm.head", device=True):
             if self.fused_ce and not decode:
                 return h, head
+            if pads_head(h.device.type, head.shape[0], decode):
+                return padded_head(h, head), h
             return F.linear(h, head), h
 
 

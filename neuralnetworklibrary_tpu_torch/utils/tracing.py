@@ -26,8 +26,8 @@ enters no profiler range and records no CUDA event.  On, a span records
 :func:`mark` records a point: its device time is measured from the start
 of its nearest device-span ancestor.  :func:`counters` reads the port's
 launch counters where they live (the kernels' own ``.launches``
-attributes, which count whether tracing is on or off); a step span
-records them at its entry and exit.
+attributes, and the padded head product's calls, which count whether
+tracing is on or off); a step span records them at its entry and exit.
 
 Usage::
 
@@ -201,13 +201,14 @@ def counters() -> dict:
     from neuralnetworklibrary_tpu_torch.ops import (
         flash_attention,
         lstm_scan,
+        padded_head,
         paged_attention,
     )
 
     fns = (flash_attention.flash_fwd, flash_attention.flash_bwd_dq,
            flash_attention.flash_bwd_dkv, flash_attention.flash_bwd_dbias,
            lstm_scan.lstm_fwd, lstm_scan.lstm_bwd,
-           paged_attention.paged_attention)
+           paged_attention.paged_attention, padded_head.padded_head)
     return {f"{fn.__name__}.launches": fn.launches for fn in fns}
 
 

@@ -214,7 +214,8 @@ def test_the_flash_backward_span_and_counters(fake_kernels):
     assert set(counters) == {
         "flash_fwd.launches", "flash_bwd_dq.launches",
         "flash_bwd_dkv.launches", "flash_bwd_dbias.launches",
-        "lstm_fwd.launches", "lstm_bwd.launches", "paged_attention.launches"}
+        "lstm_fwd.launches", "lstm_bwd.launches", "paged_attention.launches",
+        "padded_head.launches"}
     from neuralnetworklibrary_tpu_torch.ops import lstm_scan, paged_attention
 
     assert counters["flash_bwd_dkv.launches"] == fa.flash_bwd_dkv.launches
