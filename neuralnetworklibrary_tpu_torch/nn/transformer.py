@@ -3,13 +3,15 @@ and paged KV-cached decode.
 
 Counterpart of ``neuralnetworklibrary_tpu/nn/transformer.py`` for the
 training and serving paths: :func:`rope_scaling_tuple` and :func:`rope`,
-:class:`CausalSelfAttention`, :class:`MLP`, :class:`TransformerBlock`,
-:class:`TransformerLM`, :func:`init_cache`, and the losses
-:class:`FusedSeqCrossEntropyLoss` and :class:`PackedSeqCrossEntropyLoss`.
+:class:`CausalSelfAttention`, :class:`MLP`, :class:`MoEMLP`,
+:class:`TransformerBlock`, :class:`TransformerLM`, :func:`init_cache`, and
+the losses :class:`FusedSeqCrossEntropyLoss` and
+:class:`PackedSeqCrossEntropyLoss`.
 Module attribute names are the flax parameter names (``word_embed``,
 ``pos_embed``, ``lm_head``, ``block_{i}.ln1``, ``.attn.qkv``,
 ``.attn.q_norm``, ``.attn.k_norm``, ``.attn.out``, ``.ln2``,
-``.mlp.fc_in``, ``.mlp.fc_gate``, ``.mlp.fc_out``, ``ln_f``), so carrying
+``.mlp.fc_in``, ``.mlp.fc_gate``, ``.mlp.fc_out``, an expert layer's
+``.moe.gate``, ``.moe.w1`` ... ``.moe.b3``, ``ln_f``), so carrying
 weights over from the JAX package is a renaming
 (``utils.jax_params.load_jax_params``).
 
@@ -62,6 +64,7 @@ from neuralnetworklibrary_tpu_torch.ops.flash_attention import (
     flash_attention,
     use_flash,
 )
+from neuralnetworklibrary_tpu_torch.ops.moe import moe_experts, moe_route
 from neuralnetworklibrary_tpu_torch.ops.padded_head import (
     padded_head,
     pads_head,
@@ -514,21 +517,77 @@ class MLP(nn.Module):
         return F.dropout(h, self.drop) if train and self.drop > 0.0 else h
 
 
+class MoEMLP(nn.Module):
+    """Dropless top-k mixture of SwiGLU experts (``ops.moe``): the JAX
+    ``MoEMLP(gated=True, top_k=top_k, eval_dense=True)`` path
+    (transformer.py:948), in training too.  The router ``gate`` (D,
+    ``n_experts``) scores every expert; each token takes its ``top_k``,
+    weighted by the softmax over their logits (HF ``norm_topk_prob``), and
+    no token is dropped.  The layer holds ``experts`` = (first, last) of
+    them (all by default): w1, w3 (E, D, d_ff), w2 (E, d_ff, D) and the
+    biases b1, b3 (E, d_ff), b2 (E, D), flax's names and layouts, E =
+    last - first.  Its output is the held experts' part of the result:
+    under expert parallelism the other chips add the rest; slots routed
+    elsewhere add nothing here.  The router runs in float32; the products
+    in autocast's dtype where it is on, else the weights'.  There is no
+    auxiliary loss (HF Qwen3-MoE's ``output_router_logits`` false)."""
+
+    def __init__(self, d_model: int, d_ff: int, n_experts: int,
+                 top_k: int, experts=None, device=None):
+        super().__init__()
+        first, last = experts if experts is not None else (0, n_experts)
+        if not 0 <= first < last <= n_experts:
+            raise ValueError(f"experts {experts} must be a non-empty range "
+                             f"of the {n_experts}")
+        if not 1 <= top_k <= n_experts:
+            raise ValueError(f"top_k must be in [1, {n_experts}], got "
+                             f"{top_k}")
+        self.top_k, self.first = top_k, first
+        E = last - first
+
+        def normal(*shape, fan_in):
+            return nn.Parameter(torch.empty(shape, device=device).normal_(
+                0.0, fan_in ** -0.5))
+
+        self.gate = normal(d_model, n_experts, fan_in=d_model)
+        self.w1 = normal(E, d_model, d_ff, fan_in=d_model)
+        self.w3 = normal(E, d_model, d_ff, fan_in=d_model)
+        self.w2 = normal(E, d_ff, d_model, fan_in=d_ff)
+        self.b1 = nn.Parameter(torch.zeros(E, d_ff, device=device))
+        self.b3 = nn.Parameter(torch.zeros(E, d_ff, device=device))
+        self.b2 = nn.Parameter(torch.zeros(E, d_model, device=device))
+
+    def forward(self, x, train: bool = False):
+        dev = x.device.type
+        dtype = (torch.get_autocast_dtype(dev)
+                 if torch.is_autocast_enabled(dev) else self.w1.dtype)
+        flat = x.reshape(-1, x.shape[-1])
+        w, idx = moe_route(flat, self.gate, self.top_k)
+        out = moe_experts(flat, w, idx, self.w1, self.b1, self.w3, self.b3,
+                          self.w2, self.b2, self.first, dtype)
+        return out.view(x.shape)
+
+
 class TransformerBlock(nn.Module):
     """Pre-norm block: x + attn(ln1(x)), then + mlp(ln2(x)) with a
     ``d_ff`` hidden width (0: 4*d_model); ``drop`` reaches the attention
     probabilities and the MLP output; ``act``, ``gated`` and
-    ``exact_gelu`` go to the :class:`MLP`.  ``causal=False`` makes the
-    attention bidirectional (an encoder stack, as ``nn.vit.ViT`` builds).
-    ``attn_kw`` (head_dim, qk_norm, use_rope, rope_base, rope_scaling,
-    rotary_dim) go to the :class:`CausalSelfAttention`, with ``norm_eps``."""
+    ``exact_gelu`` go to the :class:`MLP`.  ``n_experts`` > 0 puts a
+    :class:`MoEMLP` (``moe``: ``moe_top_k`` of them, holding
+    ``moe_experts``, each ``d_ff`` wide) in the MLP's place.
+    ``causal=False`` makes the attention bidirectional (an encoder stack,
+    as ``nn.vit.ViT`` builds).  ``attn_kw`` (head_dim, qk_norm, use_rope,
+    rope_base, rope_scaling, rotary_dim) go to the
+    :class:`CausalSelfAttention`, with ``norm_eps``."""
 
     def __init__(self, d_model: int, n_heads: int, *, d_ff: int = 0,
                  drop: float = 0.0, n_kv_heads: int = 0, window: int = 0,
                  sinks: bool = False, rms_norm: bool = False,
                  norm_eps: float = 1e-6, act: Optional[str] = None,
                  gated: bool = False, exact_gelu: bool = False,
-                 causal: bool = True, device=None, **attn_kw):
+                 causal: bool = True, n_experts: int = 0,
+                 moe_top_k: int = 2, moe_experts=None, device=None,
+                 **attn_kw):
         super().__init__()
         norm = nn.RMSNorm if rms_norm else nn.LayerNorm
         self.ln1 = norm(d_model, eps=norm_eps, device=device)
@@ -538,8 +597,12 @@ class TransformerBlock(nn.Module):
                                         norm_eps=norm_eps, device=device,
                                         **attn_kw)
         self.ln2 = norm(d_model, eps=norm_eps, device=device)
-        self.mlp = MLP(d_model, d_ff or 4 * d_model, drop, act=act,
-                       gated=gated, exact_gelu=exact_gelu, device=device)
+        if n_experts:
+            self.moe = MoEMLP(d_model, d_ff or 4 * d_model, n_experts,
+                              moe_top_k, moe_experts, device=device)
+        else:
+            self.mlp = MLP(d_model, d_ff or 4 * d_model, drop, act=act,
+                           gated=gated, exact_gelu=exact_gelu, device=device)
 
     def forward(self, x, cache=None, offset=None, block_table=None,
                 paged_kernel: bool = True, train: bool = False,
@@ -549,7 +612,8 @@ class TransformerBlock(nn.Module):
                           paged_kernel, train, flash, generator,
                           segment_ids=segment_ids, positions=positions,
                           dropout_seed=dropout_seed)
-        return x + self.mlp(self.ln2(x), train)
+        ff = self.moe if hasattr(self, "moe") else self.mlp
+        return x + ff(self.ln2(x), train)
 
 
 class TransformerLM(nn.Module):
@@ -598,11 +662,19 @@ class TransformerLM(nn.Module):
     ``device`` defaults to cuda (see :func:`resolve_device`); convert the
     dtype with ``.to(torch.bfloat16)``.
 
+    ``n_experts`` > 0 makes every ``moe_every``-th block (the JAX rule:
+    block i when (i + 1) % moe_every == 0) a :class:`MoEMLP` of
+    ``n_experts`` ``d_ff``-wide SwiGLU experts (``mlp='swiglu'``), routed
+    dropless top-``moe_top_k`` in training and inference alike, holding
+    ``moe_experts`` = (first, last) of them (default all): one chip's share
+    under expert parallelism, whose output is that share's part.
+
     Not ported yet, each raising ``NotImplementedError`` when set (ROADMAP
     Queue 1): ``embed_scale``, ``window_pattern``, ``attn_softcap``,
     ``logit_softcap``, ``att_scale``, ``post_norm``, ``parallel_block``,
-    ``head_bias``, ``n_experts`` (MoE), ``lora_rank``, ``mesh``, ``sp``
-    and ``cp``.
+    ``head_bias``, ``capacity_factor`` (the JAX package's GShard routing,
+    which drops a token past an expert's capacity), ``lora_rank``,
+    ``mesh``, ``sp`` and ``cp``.
     """
 
     def __init__(self, vocab_size: int, d_model: int = 256, n_heads: int = 8,
@@ -622,9 +694,21 @@ class TransformerLM(nn.Module):
                  attn_softcap: float = 0.0, logit_softcap: float = 0.0,
                  att_scale: float = 0.0, post_norm: bool = False,
                  parallel_block: bool = False, head_bias: bool = False,
-                 n_experts: int = 0, lora_rank: int = 0, mesh=None,
-                 sp: bool = False, cp: bool = False, device=None):
+                 n_experts: int = 0, moe_top_k: int = 2, moe_every: int = 2,
+                 moe_experts=None, capacity_factor: Optional[float] = None,
+                 lora_rank: int = 0, mesh=None, sp: bool = False,
+                 cp: bool = False, device=None):
         super().__init__()
+        if capacity_factor is not None:
+            raise NotImplementedError(
+                "TransformerLM(capacity_factor=...): the GShard capacity "
+                "routing of the JAX package's training path, which drops "
+                "tokens past an expert's capacity, is not ported (ROADMAP "
+                "Queue 1); n_experts > 0 routes dropless top-k")
+        if n_experts and mlp != "swiglu":
+            raise NotImplementedError(
+                f"TransformerLM(n_experts=..., mlp={mlp!r}): experts are "
+                f"SwiGLU only in the port {_TODO}")
         for name, asked in (("embed_scale", embed_scale),
                             ("window_pattern", window_pattern is not None),
                             ("attn_softcap", attn_softcap),
@@ -633,7 +717,6 @@ class TransformerLM(nn.Module):
                             ("post_norm", post_norm),
                             ("parallel_block", parallel_block),
                             ("head_bias", head_bias),
-                            ("n_experts", n_experts),
                             ("lora_rank", lora_rank),
                             ("mesh", mesh is not None), ("sp", sp),
                             ("cp", cp)):
@@ -663,6 +746,8 @@ class TransformerLM(nn.Module):
         self.pos_embedding, self.mlp = pos_embedding, mlp
         self.tied_decoder, self.remat = tied_decoder, remat
         self.fused_ce, self.reset_at = fused_ce, reset_at
+        self.n_experts, self.moe_top_k = n_experts, moe_top_k
+        self.moe_every, self.moe_experts = moe_every, moe_experts
         self.word_embed = nn.Parameter(
             torch.empty(vocab_size, d_model, device=dev).normal_(0, 0.02))
         self.pos_embed = (nn.Parameter(
@@ -677,7 +762,10 @@ class TransformerLM(nn.Module):
                 gated=mlp != "gelu", head_dim=self.head_dim,
                 qk_norm=qk_norm, use_rope=pos_embedding == "rope",
                 rope_base=rope_base, rope_scaling=rope_scaling,
-                rotary_dim=rotary_dim, device=dev))
+                rotary_dim=rotary_dim,
+                n_experts=(n_experts if n_experts
+                           and (i + 1) % max(1, moe_every) == 0 else 0),
+                moe_top_k=moe_top_k, moe_experts=moe_experts, device=dev))
         self.ln_f = (nn.RMSNorm if norm == "rmsnorm" else nn.LayerNorm)(
             d_model, eps=norm_eps, device=dev)
         self.lm_head = (None if tied_decoder else nn.Parameter(

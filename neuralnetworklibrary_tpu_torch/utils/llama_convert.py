@@ -17,6 +17,14 @@ none (exact), and the MLP's ``fc_in`` the silu side (HF ``gate_proj``),
 ``utils.jax_params.load_jax_params``.  The state dicts are mappings of
 numpy arrays or tensors; nothing here imports ``transformers``.
 
+Qwen3-MoE (:func:`convert_qwen3_moe_state_dict`, :func:`load_qwen3_moe`)
+keeps the Qwen3 attention and puts a ``moe`` layer in the MLP's place:
+the router ``mlp.gate.weight`` (n_experts, D) as ``gate`` (D, n_experts),
+and of the held experts ``e`` (all, or ``experts`` = (first, last))
+``mlp.experts.{e}.gate_proj`` / ``up_proj`` / ``down_proj`` stacked and
+transposed into ``w1``, ``w3`` (E, D, F) and ``w2`` (E, F, D), with zero
+biases ``b1``, ``b3``, ``b2`` (the JAX ``MoEMLP`` layout).
+
 Not ported yet (ROADMAP Queue 1): the Mixtral, Gemma, Gemma2, GPT-OSS,
 Phi-2 and Phi-3 converters.
 """
@@ -46,11 +54,54 @@ def _t(x):
     return np.asarray(x, np.float32)
 
 
+def _dense_mlp(sd, p):
+    gate = _t(sd[p + "mlp.gate_proj.weight"]).T       # (D, F)
+    up = _t(sd[p + "mlp.up_proj.weight"]).T
+    down = _t(sd[p + "mlp.down_proj.weight"]).T       # (F, D)
+    return "mlp", {name: {"kernel": w,
+                          "bias": np.zeros(w.shape[1], np.float32)}
+                   for name, w in (("fc_in", gate), ("fc_gate", up),
+                                   ("fc_out", down))}
+
+
+def _stack_t(ws):
+    """(E, in, out) float32 numpy of HF (out, in) weights, stacked and
+    transposed where they lie (on the card for tensors)."""
+    if isinstance(ws[0], torch.Tensor):
+        return _t(torch.stack([w.detach().float() for w in ws])
+                  .transpose(1, 2).contiguous())
+    return np.ascontiguousarray(np.stack([_t(w) for w in ws])
+                                .transpose(0, 2, 1))
+
+
+def _expert_mlp(experts):
+    first, last = experts
+
+    def moe(sd, p):
+        held = [f"{p}mlp.experts.{e}." for e in range(first, last)]
+        w = {name: _stack_t([sd[h + key + ".weight"] for h in held])
+             for name, key in (("w1", "gate_proj"), ("w3", "up_proj"),
+                               ("w2", "down_proj"))}
+        E, F, D = len(held), w["w1"].shape[2], w["w2"].shape[2]
+        return "moe", {"gate": _t(sd[p + "mlp.gate.weight"]).T, **w,
+                       "b1": np.zeros((E, F), np.float32),
+                       "b3": np.zeros((E, F), np.float32),
+                       "b2": np.zeros((E, D), np.float32)}
+
+    return moe
+
+
 def convert_llama_state_dict(state_dict, n_layers: int) -> dict:
     """HF LlamaForCausalLM / Qwen3ForCausalLM (or the bare model) state
     dict -> the flax params tree of ``TransformerLM``: with ``lm_head``
     when the checkpoint has its own decoder, else for the tied decoder
     (an ``lm_head.weight`` equal to the embedding counts as tied)."""
+    return _convert(state_dict, n_layers, _dense_mlp)
+
+
+def _convert(state_dict, n_layers: int, ffn) -> dict:
+    """The tree of :func:`convert_llama_state_dict`, each layer's
+    feed-forward by ``ffn(sd, prefix)`` -> (its name, its tree)."""
     sd = dict(state_dict)
     head = None
     if any(k.startswith("model.") for k in sd):
@@ -88,19 +139,21 @@ def convert_llama_state_dict(state_dict, n_layers: int) -> dict:
         if p + "self_attn.q_norm.weight" in sd:
             attn["q_norm"] = {"scale": _t(sd[p + "self_attn.q_norm.weight"])}
             attn["k_norm"] = {"scale": _t(sd[p + "self_attn.k_norm.weight"])}
-        gate = _t(sd[p + "mlp.gate_proj.weight"]).T       # (D, F)
-        up = _t(sd[p + "mlp.up_proj.weight"]).T
-        down = _t(sd[p + "mlp.down_proj.weight"]).T       # (F, D)
+        name, tree = ffn(sd, p)
         params[f"block_{i}"] = {
             "ln1": {"scale": _t(sd[p + "input_layernorm.weight"])},
             "ln2": {"scale": _t(sd[p + "post_attention_layernorm.weight"])},
-            "attn": attn,
-            "mlp": {name: {"kernel": w,
-                           "bias": np.zeros(w.shape[1], np.float32)}
-                    for name, w in (("fc_in", gate), ("fc_gate", up),
-                                    ("fc_out", down))},
+            "attn": attn, name: tree,
         }
     return params
+
+
+def convert_qwen3_moe_state_dict(state_dict, n_layers: int,
+                                 experts) -> dict:
+    """HF Qwen3MoeForCausalLM state dict -> the flax params tree of an
+    expert ``TransformerLM`` holding ``experts`` = (first, last) (see the
+    module's doc); every layer an expert layer."""
+    return _convert(state_dict, n_layers, _expert_mlp(experts))
 
 
 def _build(params, **cfg):
@@ -145,10 +198,53 @@ def load_qwen3(state_dict, n_layers: int, n_heads: int, d_model: int,
                       **model_kw)
 
 
+def load_qwen3_moe(state_dict, n_layers: int, n_heads: int, d_model: int,
+                   vocab_size: int, head_dim: int, n_experts: int,
+                   moe_top_k: int, d_ff: int, n_kv_heads: int = 0,
+                   moe_experts=None, max_len: int = 4096,
+                   rope_base: float = 1000000.0, norm_eps: float = 1e-6,
+                   drop: float = 0.0, **model_kw):
+    """HF Qwen3MoeForCausalLM -> (model, params), as :func:`load_qwen3`
+    with every layer's MLP a dropless top-``moe_top_k`` ``MoEMLP`` of the
+    router's ``n_experts`` (``num_experts``, ``num_experts_per_tok``;
+    ``d_ff`` is ``moe_intermediate_size``) holding ``moe_experts`` =
+    (first, last), all by default: the state dict needs only the held
+    experts' weights."""
+    experts = tuple(moe_experts or (0, n_experts))
+    with tracing.span("convert.load_qwen3_moe"):
+        return _build(
+            convert_qwen3_moe_state_dict(state_dict, n_layers, experts),
+            vocab_size=vocab_size, d_model=d_model, n_heads=n_heads,
+            n_kv_heads=n_kv_heads, n_layers=n_layers, d_ff=d_ff,
+            max_len=max_len, drop=drop, rope_base=rope_base,
+            norm_eps=norm_eps, head_dim=head_dim, qk_norm=True,
+            n_experts=n_experts, moe_top_k=moe_top_k, moe_every=1,
+            moe_experts=experts, **model_kw)
+
+
+def _moe_config(cfg) -> dict:
+    """load_qwen3_moe's expert arguments from a Qwen3-MoE config: every
+    layer an expert layer, weights renormalised over the top k."""
+    if (cfg.get("decoder_sparse_step", 1) != 1
+            or cfg.get("mlp_only_layers")):
+        raise NotImplementedError(
+            "load_llama_dir: Qwen3-MoE with dense layers (decoder_sparse_step"
+            " != 1 or mlp_only_layers) is not ported yet (ROADMAP Queue 1)")
+    if not cfg.get("norm_topk_prob", False):
+        raise NotImplementedError(
+            "load_llama_dir: Qwen3-MoE without norm_topk_prob is not ported "
+            "yet (ROADMAP Queue 1)")
+    return dict(n_experts=cfg["num_experts"],
+                moe_top_k=cfg["num_experts_per_tok"],
+                d_ff=cfg["moe_intermediate_size"])
+
+
 def load_llama_dir(path: str, max_len: int = 0, **model_kw):
     """(model, params) of an HF snapshot directory (``config.json`` and
     ``.safetensors``, one file or index-sharded) of ``model_type``
-    'llama' or 'qwen3', read by ``utils.safetensors_io``.  ``max_len``
+    'llama', 'qwen3' or 'qwen3_moe' (every layer an expert layer, the
+    top-k weights renormalised; ``moe_experts=`` picks the held
+    experts), read by ``utils.safetensors_io``.  ``max_len``
     defaults to the config's max_position_embeddings; ``rope_scaling``,
     ``partial_rotary_factor`` and a sliding window (where
     ``use_sliding_window`` is not False) are read from the config;
@@ -157,10 +253,11 @@ def load_llama_dir(path: str, max_len: int = 0, **model_kw):
     with open(os.path.join(path, "config.json")) as f:
         cfg = json.load(f)
     mt = cfg.get("model_type")
-    if mt not in ("llama", "qwen3"):
+    if mt not in ("llama", "qwen3", "qwen3_moe"):
         raise NotImplementedError(
             f"load_llama_dir: model_type {mt!r} is not ported yet (ROADMAP "
-            f"Queue 1); 'llama' and 'qwen3' are")
+            f"Queue 1); 'llama', 'qwen3' and 'qwen3_moe' are")
+    moe = _moe_config(cfg) if mt == "qwen3_moe" else None
     hd = cfg.get("head_dim") or (cfg["hidden_size"]
                                  // cfg["num_attention_heads"])
     prf = float(cfg.get("partial_rotary_factor", 1.0))
@@ -190,8 +287,12 @@ def load_llama_dir(path: str, max_len: int = 0, **model_kw):
     if window:
         model_kw.setdefault("window", window)
     sd = load_safetensors_auto(path)
-    if mt == "qwen3":
+    if mt != "llama":
         common["rope_base"] = float(cfg.get("rope_theta", 1000000.0))
         common["norm_eps"] = float(cfg.get("rms_norm_eps", 1e-6))
+    if moe is not None:
+        return load_qwen3_moe(sd, head_dim=hd, **dict(common, **moe),
+                              **model_kw)
+    if mt == "qwen3":
         return load_qwen3(sd, head_dim=hd, **common, **model_kw)
     return load_llama(sd, **common, **model_kw)

@@ -26,8 +26,10 @@ enters no profiler range and records no CUDA event.  On, a span records
 :func:`mark` records a point: its device time is measured from the start
 of its nearest device-span ancestor.  :func:`counters` reads the port's
 launch counters where they live (the kernels' own ``.launches``
-attributes, and the padded head product's calls, which count whether
-tracing is on or off); a step span records them at its entry and exit.
+attributes, and the padded head product's and the expert layers' calls,
+which count whether tracing is on or off, and the expert layers' held
+assignments, counted on the device only while tracing is on); a step span
+records them at its entry and exit.
 
 Usage::
 
@@ -197,10 +199,14 @@ def mark(name: str) -> None:
 
 
 def counters() -> dict:
-    """Every launch counter of the port, by ``<kernel>.launches``."""
+    """Every launch counter of the port, by ``<kernel>.launches``, and the
+    expert layers' held assignments (``moe_experts.assignments``), which
+    are counted on the device while tracing is on: a device copy here, a
+    number in :func:`snapshot`."""
     from neuralnetworklibrary_tpu_torch.ops import (
         flash_attention,
         lstm_scan,
+        moe,
         padded_head,
         paged_attention,
     )
@@ -208,8 +214,15 @@ def counters() -> dict:
     fns = (flash_attention.flash_fwd, flash_attention.flash_bwd_dq,
            flash_attention.flash_bwd_dkv, flash_attention.flash_bwd_dbias,
            lstm_scan.lstm_fwd, lstm_scan.lstm_bwd,
-           paged_attention.paged_attention, padded_head.padded_head)
-    return {f"{fn.__name__}.launches": fn.launches for fn in fns}
+           paged_attention.paged_attention, padded_head.padded_head,
+           moe.moe_experts)
+    out = {f"{fn.__name__}.launches": fn.launches for fn in fns}
+    out["moe_experts.assignments"] = moe.assignments()
+    return out
+
+
+def _numbers(counts: dict) -> dict:
+    return {k: v if isinstance(v, int) else int(v) for k, v in counts.items()}
 
 
 def _covered(intervals, a, b) -> int:
@@ -247,10 +260,12 @@ def snapshot() -> dict:
                 up = by_id.get(up.parent)
             if up is not None:
                 dev = up.e0.elapsed_time(s.e0)
+        data = {k: _numbers(v) if k.startswith("counters") else v
+                for k, v in s.data.items()}
         out.append({"name": s.name, "id": s.id, "parent": s.parent,
                     "thread": s.thread, "step": s.step,
                     "start_ns": s.start_ns, "end_ns": s.end_ns,
                     "self_ns": s.end_ns - s.start_ns - _covered(
                         kids.get(s.id, ()), s.start_ns, s.end_ns),
-                    "device_ms": dev, **s.data})
-    return {"spans": out, "counters": counters()}
+                    "device_ms": dev, **data})
+    return {"spans": out, "counters": _numbers(counters())}

@@ -332,7 +332,8 @@ def test_load_llama_dir_reads_a_saved_snapshot(tmp_path):
     dict(embed_scale=8.0), dict(window_pattern=(0, 4)),
     dict(attn_softcap=50.0), dict(logit_softcap=30.0), dict(att_scale=2.0),
     dict(post_norm=True), dict(parallel_block=True), dict(head_bias=True),
-    dict(n_experts=4), dict(lora_rank=4), dict(sp=True), dict(cp=True)])
+    dict(n_experts=4, capacity_factor=1.25), dict(lora_rank=4),
+    dict(sp=True), dict(cp=True)])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tr.TransformerLM(**CFG, **option, device="cpu")
