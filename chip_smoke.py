@@ -28,6 +28,17 @@ name and power limit from nvidia-smi):
           129, B*H 1 and 3, T 114 with a bias, a fully masked batch row,
           dropout; and K3 with dbias twice on the same inputs, which must
           give the same bits.
+- adam:   the fused Adam kernel (ops.adam) against the foreach chain
+          (core.optim.foreach_adam after the decay's foreach mul and the
+          clip's scale) on the same card inputs, at Qwen3-0.6B's trained
+          leaves with a clip scale and the norm leaves without weight
+          decay, and at the SDAR-30B-A3B cell's stage (2.65 B elements,
+          past 2^31) without a clip, each leaf within rtol 1e-5 + atol
+          1e-7 of the chain; then at both sizes the kernel, the chain and
+          torch._fused_adamw_ (a yardstick the port never calls) timed.
+          Every training phase below runs with the kernel's counters from
+          0 and a tally of the elements Optimizer.apply trains on the
+          card: each must send every such element through the kernel.
 - serve:  GPT-2-124M at full width (random weights from --seed, loaded
           through load_jax_params): (a) one f32 paged decode step, kernel
           path against gather path; (b) bf16 PagedServingEngine over 16
@@ -261,6 +272,21 @@ K5_TIMING = (
     ("gqa", 16, 32, 8, 128, 128, torch.bfloat16, 4095),
     ("int8", 8, 12, 12, 64, 32, torch.int8, 511))
 K5_SWEEP = ("slice", "b1", "gqa")   # and long_context for the ablations
+ADAM_SOURCE = "neuralnetworklibrary_tpu_torch/csrc/adam.cu"
+ADAM_REPLACES = ("no TPU kernel: XLA fuses the JAX package's Adam step "
+                 "(neuralnetworklibrary_tpu/core/optim.py:207)")
+ADAM_DESIGN = ("multi-tensor, one pass: a table of <= 80 tensors by value "
+               "(p, g, m, v, numel, first unit, decay), units of 8,192 "
+               "elements walked by a grid-stride wave, 16-byte vectors "
+               "where all four pointers align, 64-bit offsets; 28 bytes an "
+               "element, no temporaries, one launch per (group, step "
+               "count) table")
+# the kernel against the foreach chain, elementwise |got - want| <= atol +
+# rtol*|want| (test_optimizer_matches_jax's): both compute in float32 in
+# one order, and differ where nvcc contracts a multiply-add into an fma
+ADAM_TOL = (1e-5, 1e-7)
+# Adam2 at the cells' lr 3e-4 and wd 0.1, a step count of 3
+ADAM_STEP = dict(lr=3e-4, wd=0.1, b1=0.9, b2=0.99, t=3, eps=1e-8)
 FLASH_SOURCE = "neuralnetworklibrary_tpu_torch/csrc/flash_attention.cu"
 FLASH_REPLACES = {
     "flash_fwd": "neuralnetworklibrary_tpu/ops/flash_attention.py:119",
@@ -1546,6 +1572,160 @@ def phase_flash_options(seed):
             "flash_bwd_dq": max(e["dq"] for e in errs + [sk]),
             "flash_bwd_dkv": max(max(e["dk"], e["dv"]) for e in errs + [sk]),
             "flash_bwd_dbias": max(e["dbias"] for e in errs)}
+
+
+def adam_shapes(name):
+    """The trained leaves of Qwen3-0.6B (tied head) and of the
+    SDAR-30B-A3B cell's stage (4 layers of 128 stacked experts, a quarter
+    of the vocabulary in and out), and which of them are norm leaves."""
+    if name == "qwen3_0.6b":
+        d, q, kv, hd, ff = 1024, 2048, 1024, 128, 3072
+        layer = [(q, d), (kv, d), (kv, d), (d, q), (hd,), (hd,), (d,), (d,),
+                 (ff, d), (ff, d), (d, ff)]
+        shapes = [(151936, d)] + layer * 28 + [(d,)]
+    else:
+        d, q, kv, hd, e, ff, v = 2048, 4096, 512, 128, 128, 768, 37984
+        layer = [(q, d), (kv, d), (kv, d), (d, q), (hd,), (hd,), (d,), (d,),
+                 (e, d), (e, ff * 2, d), (e, d, ff)]
+        shapes = [(v, d)] + layer * 4 + [(d,), (v, d)]
+    return shapes, [len(s) == 1 for s in shapes]
+
+
+def adam_draw(shape, seed):
+    """p, g, m, v of one leaf on the card, from ``seed`` alone (so one
+    leaf can be drawn again on its own)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    p, g, m = (torch.randn(shape, device="cuda", generator=gen)
+               for _ in "pgm")
+    v = torch.rand(shape, device="cuda", generator=gen)
+    return p, g, m.mul_(0.1), v.mul_(0.01)
+
+
+def phase_adam(seed):
+    """The fused Adam kernel against the foreach chain on the same card
+    inputs, then timed (see the module's docstring)."""
+    from neuralnetworklibrary_tpu_torch.core.optim import foreach_adam
+    from neuralnetworklibrary_tpu_torch.ops import adam
+
+    a = ADAM_STEP
+    f32 = lambda x: float(np.float32(x))      # noqa: E731
+    scalars = dict(lr=f32(a["lr"]), b1=f32(a["b1"]), omb1=f32(1 - a["b1"]),
+                   b2=f32(a["b2"]), omb2=f32(1 - a["b2"]),
+                   bc1=f32(1 - np.float32(a["b1"]) ** np.float32(a["t"])),
+                   bc2=f32(1 - np.float32(a["b2"]) ** np.float32(a["t"])),
+                   eps=a["eps"])
+    decay = f32(np.float32(1) - np.float32(a["wd"]) * np.float32(a["lr"]))
+    rtol, atol = ADAM_TOL
+    timer = Timer()
+    rows, worst = {}, 0.0
+    for k, (name, clip_scale) in enumerate((("qwen3_0.6b", 0.37),
+                                            ("sdar_30b_a3b", None))):
+        shapes, is_norm = adam_shapes(name)
+        seeds = [seed * 1000 + 100 * k + i for i in range(len(shapes))]
+        # norm leaves take no weight decay (a bn_wd=False model) where the
+        # clip is on; every leaf decays where it is off
+        decays = [1.0 if norm and clip_scale else decay for norm in is_norm]
+        scale = (None if clip_scale is None else
+                 torch.tensor(clip_scale, device="cuda"))
+        leaves = [adam_draw(sh, sd) for sh, sd in zip(shapes, seeds)]
+        ps, gs, ms, vs = (list(x) for x in zip(*leaves))
+        del leaves
+        n = sum(p.numel() for p in ps)
+        adam.adam.launches = adam.adam.elements = 0
+        adam.adam(ps, gs, ms, vs, decays, scale=scale, **scalars)
+        launches, elements = adam.adam.launches, adam.adam.elements
+        torch.cuda.synchronize()
+        if elements != n:
+            fail(f"adam at {name}: the kernel updated {elements} of {n} "
+                 f"elements")
+        err = ratio = 0.0
+        for i, (shape, sd) in enumerate(zip(shapes, seeds)):
+            p, g, m, v = adam_draw(shape, sd)
+            p.mul_(decays[i])
+            if scale is not None:
+                g.mul_(scale)
+            foreach_adam([p], [g], [m], [v], **scalars)
+            for got, want in ((ps[i], p), (ms[i], m), (vs[i], v)):
+                diff = (got - want).abs_()
+                err = max(err, float(diff.max()))
+                ratio = max(ratio, float(
+                    (diff / (atol + rtol * want.abs())).max()))
+            del p, g, m, v, diff
+        worst = max(worst, err)
+        if not ratio <= 1.0:
+            fail(f"adam at {name}: |kernel - foreach| over (atol {atol} + "
+                 f"rtol {rtol} |foreach|) reaches {ratio}")
+
+        def kernel():
+            adam.adam(ps, gs, ms, vs, decays, scale=scale, **scalars)
+
+        def chain():
+            torch._foreach_mul_(ps, decay)
+            if scale is not None:
+                torch._foreach_mul_(gs, scale)
+            foreach_adam(ps, gs, ms, vs, **scalars)
+
+        steps = [torch.full((), float(a["t"]), device="cuda") for _ in ps]
+
+        def library():
+            torch._fused_adamw_(ps, gs, ms, vs, [], steps, lr=a["lr"],
+                                beta1=a["b1"], beta2=a["b2"],
+                                weight_decay=a["wd"], eps=a["eps"],
+                                amsgrad=False, maximize=False)
+
+        bound_ms = 28 * n / HBM_BYTES_PER_S * 1e3
+        rows[name] = {
+            "elements": n, "tensors": len(ps), "launches": launches,
+            "max_abs_err": err, "err_over_tol": ratio,
+            "clip_scale": clip_scale,
+            **timed_row(timer.stats(kernel, reps=10, warmup=2),
+                        timer.stats(chain, reps=10, warmup=2),
+                        timer.stats(library, reps=10, warmup=2),
+                        (bound_ms, "bytes"))}
+        rows[name]["share_of_bound"] = bound_ms / rows[name]["ms"]
+        del ps, gs, ms, vs, steps, scale
+        torch.cuda.empty_cache()
+    emit({"phase": "adam", "kernel": "adam", "tol": "atol %g + rtol %g"
+          % (atol, rtol), "step": ADAM_STEP, **rows})
+    return worst, rows
+
+
+# fused Adam kernel counts of each training phase (adam_counted)
+ADAM_PATHS = {}
+
+
+def adam_counted(path, phase, *args):
+    """``phase(*args)`` with the fused Adam kernel's counters from 0 and a
+    tally of the elements ``Optimizer.apply`` trains on the card (the adam
+    kind); fails unless each of those went through the kernel."""
+    from neuralnetworklibrary_tpu_torch.core import optim
+    from neuralnetworklibrary_tpu_torch.ops import adam
+
+    trained = [0]
+    apply = optim.Optimizer.apply
+
+    def tally(self, params, grads, opt_state, partition, trainable, *a,
+              **kw):
+        if self.kind == "adam":
+            trained[0] += sum(params[p].numel() for p, t in
+                              zip(partition.paths, trainable)
+                              if t and params[p].is_cuda)
+        return apply(self, params, grads, opt_state, partition, trainable,
+                     *a, **kw)
+
+    adam.adam.launches = adam.adam.elements = 0
+    optim.Optimizer.apply = tally
+    try:
+        out = phase(*args)
+    finally:
+        optim.Optimizer.apply = apply
+    row = {"launches": adam.adam.launches, "elements": adam.adam.elements,
+           "trained_elements": trained[0]}
+    if row["elements"] != row["trained_elements"] or not row["launches"]:
+        fail(f"{path}: the fused Adam kernel's launches and elements "
+             f"{row}, not every trained element")
+    ADAM_PATHS[path] = row
+    return out
 
 
 def gpt2_params(seed, cfg):
@@ -5136,20 +5316,24 @@ def main():
     main_err = phase_kernel(args.seed)
     flash_err = phase_flash_kernel(args.seed)
     edge_err = phase_flash_edges(args.seed)
+    adam_err, adam_rows = phase_adam(args.seed)
     launches = phase_serve(args.seed, args.profile)
-    flash_launches = phase_train(args.seed, args.profile)
-    phase_auto_flash(args.seed)
+    flash_launches = adam_counted("train", phase_train, args.seed,
+                                  args.profile)
+    adam_counted("auto_flash", phase_auto_flash, args.seed)
     lstm_err = phase_lstm_kernel(args.seed)
-    lstm_launches = phase_lm(args.seed, args.profile)
+    lstm_launches = adam_counted("lm", phase_lm, args.seed, args.profile)
     t5_err = phase_flash_options(args.seed)
-    t5_launches = phase_t5(args.seed, args.profile)
-    phase_vision(args.seed, args.profile)
-    vit_launches = phase_vit(args.seed, args.profile)
-    clf_launches = phase_classifier(args.seed, args.profile)
-    phase_collab(args.seed, args.profile)
-    phase_structured(args.seed, args.profile)
-    phase_detection(args.seed, args.profile)
-    qwen3_launches = phase_qwen3(args.seed, args.profile)
+    t5_launches = adam_counted("t5", phase_t5, args.seed, args.profile)
+    adam_counted("vision", phase_vision, args.seed, args.profile)
+    vit_launches = adam_counted("vit", phase_vit, args.seed, args.profile)
+    clf_launches = adam_counted("classifier", phase_classifier, args.seed,
+                                args.profile)
+    adam_counted("collab", phase_collab, args.seed, args.profile)
+    adam_counted("structured", phase_structured, args.seed, args.profile)
+    adam_counted("detection", phase_detection, args.seed, args.profile)
+    qwen3_launches = adam_counted("qwen3", phase_qwen3, args.seed,
+                                  args.profile)
     k5_rows = phase_timing(args.seed)
     flash_t = phase_flash_timing(args.seed)
     lstm_t = phase_lstm_timing(args.seed)
@@ -5212,6 +5396,22 @@ def main():
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": lstm_err[name],
             "tol": "atol %g + rtol %g" % LSTM_TOL[kind], **row})
+    # the fused Adam step: a kernel of the port alone, at Qwen3-0.6B's
+    # trained elements with the SDAR stage's beside them; launches and
+    # elements over every training path
+    kernels.append({
+        "name": "adam", "route": "cuda", "source": ADAM_SOURCE,
+        "design": ADAM_DESIGN, "replaces": ADAM_REPLACES,
+        "launches": sum(r["launches"] for r in ADAM_PATHS.values()),
+        "launches_by_path": {p: r["launches"] for p, r in ADAM_PATHS.items()},
+        "elements_by_path": {p: r["elements"] for p, r in ADAM_PATHS.items()},
+        "launches_counted": "one per (layer group, step count) table of at "
+                            "most 80 tensors",
+        "max_abs_err": adam_err, "tol": "atol %g + rtol %g" % ADAM_TOL[::-1],
+        "shape": "qwen3_0.6b",
+        **{k: adam_rows["qwen3_0.6b"][k] for k in TIMED_KEYS},
+        "sdar_30b_a3b": {k: adam_rows["sdar_30b_a3b"][k]
+                         for k in TIMED_KEYS}})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

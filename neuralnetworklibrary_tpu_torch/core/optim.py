@@ -15,9 +15,13 @@ and ``adam`` kinds of its ``opt_dict`` (SGD, SGD_Mom, Adam, Adam2).
    computed in float32, as the JAX step computes them.
 
 Unlike the JAX optimizer it updates parameters and state IN PLACE (under
-``torch.no_grad``), with ``torch._foreach_*`` ops over the parameters of
-one layer group.  Frozen parameters are skipped: their values, buffers and
-step counts stay untouched.  State is float32.
+``torch.no_grad``).  The adam kind on a CUDA device runs all three steps
+of every trained leaf in one hand-written kernel (``ops/adam.py``), one
+launch per layer group and step count; it takes float32 p, g, m and v of
+one layout, which :meth:`init` and autograd give, and raises on anything
+else.  On the CPU, and for the sgd kind, ``torch._foreach_*`` ops run over
+the parameters of one layer group.  Frozen parameters are skipped: their
+values, buffers and step counts stay untouched.  State is float32.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch
 
 from neuralnetworklibrary_tpu_torch.core.partition import Partition
 from neuralnetworklibrary_tpu_torch.core.pytree import global_norm
+from neuralnetworklibrary_tpu_torch.ops import adam as fused
 
 # Optimizer registry, as opt_dict (Learner.py:16-19) of the JAX package.
 opt_dict: dict[str, dict] = {
@@ -121,26 +126,37 @@ class Optimizer:
         for i, path in enumerate(partition.paths):
             if trainable[i]:
                 by_group[partition.group_idx[i]].append((i, path))
+        # the adam kind on the card: all three steps in the kernel's pass
+        card = self.kind == "adam" and any(
+            params[path].is_cuda for members in by_group.values()
+            for _, path in members[:1])
+        decays = {}
+        if wd_groups is not None:
+            for g in by_group:
+                decays[g] = _f32(np.float32(1) - np.float32(wd_groups[g])
+                                 * np.float32(lr_groups[g]))
 
         # 1) decoupled weight decay
-        if wd_groups is not None:
+        if not card:
             for g, members in by_group.items():
                 ps = [params[path] for i, path in members
                       if bn_wd or not partition.is_bn[i]]
-                factor = _f32(np.float32(1) - np.float32(wd_groups[g])
-                              * np.float32(lr_groups[g]))
-                if ps and factor != 1.0:
-                    torch._foreach_mul_(ps, factor)
+                if ps and decays.get(g, 1.0) != 1.0:
+                    torch._foreach_mul_(ps, decays[g])
 
         # 2) global grad-norm clipping over the trainable leaves
+        scale = None
         if clip is not None and np.isfinite(clip):
             gs = [grads[path] for members in by_group.values()
                   for _, path in members]
             scale = torch.clamp(float(clip) / (global_norm(gs) + 1e-6),
                                 max=1.0)
-            torch._foreach_mul_(gs, scale)
+            if not card:
+                torch._foreach_mul_(gs, scale)
 
         # 3) the step, per layer group (and per step count for adam)
+        omb1, omb2 = _f32(1.0 - b1), _f32(1.0 - b2)
+        b1, b2 = _f32(b1), _f32(b2)
         for g, members in by_group.items():
             lr = _f32(lr_groups[g])
             paths = [path for _, path in members]
@@ -152,24 +168,42 @@ class Optimizer:
                 torch._foreach_add_(ps, bufs, alpha=-lr)
                 continue
             by_t = defaultdict(list)
-            for p in paths:
-                by_t[opt_state[p]["t"] + 1].append(p)
-            for t, tpaths in by_t.items():
+            for i, p in members:
+                by_t[opt_state[p]["t"] + 1].append((i, p))
+            for t, tmembers in by_t.items():
+                tf = np.float32(t)
+                bc1 = _f32(np.float32(1) - np.power(np.float32(b1), tf))
+                bc2 = _f32(np.float32(1) - np.power(np.float32(b2), tf))
+                tpaths = [p for _, p in tmembers]
                 ps = [params[p] for p in tpaths]
                 gs = [grads[p] for p in tpaths]
                 ms = [opt_state[p]["m"] for p in tpaths]
                 vs = [opt_state[p]["v"] for p in tpaths]
-                torch._foreach_mul_(ms, _f32(b1))
-                torch._foreach_add_(ms, gs, alpha=_f32(1.0 - b1))
-                torch._foreach_mul_(vs, _f32(b2))
-                torch._foreach_addcmul_(vs, gs, gs, value=_f32(1.0 - b2))
-                tf = np.float32(t)
-                bc1 = _f32(np.float32(1) - np.power(np.float32(b1), tf))
-                bc2 = _f32(np.float32(1) - np.power(np.float32(b2), tf))
-                m_hat = torch._foreach_div(ms, bc1)
-                denom = torch._foreach_div(vs, bc2)
-                torch._foreach_sqrt_(denom)
-                torch._foreach_add_(denom, self.eps)
-                torch._foreach_addcdiv_(ps, m_hat, denom, value=-lr)
+                if card:
+                    fused.adam(
+                        ps, gs, ms, vs,
+                        [decays.get(g, 1.0) if bn_wd or not partition.is_bn[i]
+                         else 1.0 for i, _ in tmembers],
+                        lr=lr, b1=b1, omb1=omb1, b2=b2, omb2=omb2, bc1=bc1,
+                        bc2=bc2, eps=self.eps, scale=scale)
+                else:
+                    foreach_adam(ps, gs, ms, vs, lr=lr, b1=b1, omb1=omb1,
+                                 b2=b2, omb2=omb2, bc1=bc1, bc2=bc2,
+                                 eps=self.eps)
                 for p in tpaths:
                     opt_state[p]["t"] = t
+
+
+def foreach_adam(ps, gs, ms, vs, *, lr, b1, omb1, b2, omb2, bc1, bc2, eps):
+    """The Adam step after decay and clipping, in ``torch._foreach_*`` ops
+    over lists of tensors, in place: the plain version of the kernel's
+    pass (it allocates the bias-corrected moment and the denominator)."""
+    torch._foreach_mul_(ms, b1)
+    torch._foreach_add_(ms, gs, alpha=omb1)
+    torch._foreach_mul_(vs, b2)
+    torch._foreach_addcmul_(vs, gs, gs, value=omb2)
+    m_hat = torch._foreach_div(ms, bc1)
+    denom = torch._foreach_div(vs, bc2)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, eps)
+    torch._foreach_addcdiv_(ps, m_hat, denom, value=-lr)

@@ -199,11 +199,13 @@ def mark(name: str) -> None:
 
 
 def counters() -> dict:
-    """Every launch counter of the port, by ``<kernel>.launches``, and the
+    """Every launch counter of the port, by ``<kernel>.launches``; the
+    elements the fused Adam kernel updated (``adam.elements``); and the
     expert layers' held assignments (``moe_experts.assignments``), which
     are counted on the device while tracing is on: a device copy here, a
     number in :func:`snapshot`."""
     from neuralnetworklibrary_tpu_torch.ops import (
+        adam,
         flash_attention,
         lstm_scan,
         moe,
@@ -215,8 +217,9 @@ def counters() -> dict:
            flash_attention.flash_bwd_dkv, flash_attention.flash_bwd_dbias,
            lstm_scan.lstm_fwd, lstm_scan.lstm_bwd,
            paged_attention.paged_attention, padded_head.padded_head,
-           moe.moe_experts)
+           moe.moe_experts, adam.adam)
     out = {f"{fn.__name__}.launches": fn.launches for fn in fns}
+    out["adam.elements"] = adam.adam.elements
     out["moe_experts.assignments"] = moe.assignments()
     return out
 

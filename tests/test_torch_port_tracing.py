@@ -216,7 +216,7 @@ def test_the_flash_backward_span_and_counters(fake_kernels):
         "flash_bwd_dkv.launches", "flash_bwd_dbias.launches",
         "lstm_fwd.launches", "lstm_bwd.launches", "paged_attention.launches",
         "padded_head.launches", "moe_experts.launches",
-        "moe_experts.assignments"}
+        "moe_experts.assignments", "adam.launches", "adam.elements"}
     from neuralnetworklibrary_tpu_torch.ops import lstm_scan, paged_attention
 
     assert counters["flash_bwd_dkv.launches"] == fa.flash_bwd_dkv.launches
