@@ -723,16 +723,14 @@ def lstm_variant_load(started):
     wrapper's signatures, and its ptxas report."""
     import ctypes
 
+    from neuralnetworklibrary_tpu_torch.kernels import build
     from neuralnetworklibrary_tpu_torch.ops import lstm_scan as ls
 
     label, d, proc = started
     log, _ = proc.communicate()
     if proc.returncode != 0:
         fail(f"lstm variant {label} did not build:\n{log[-3000:]}")
-    lib = ctypes.CDLL(str(d / "lib.so"))
-    for n, (argtypes, restype) in ls.SIGNATURES.items():
-        fn = getattr(lib, n)
-        fn.argtypes, fn.restype = argtypes, restype
+    lib = build.declare(ctypes.CDLL(str(d / "lib.so")), ls.SIGNATURES)
     return lib, ptxas_report(log)
 
 
@@ -2414,16 +2412,13 @@ def phase_paged_sweep(seed):
                                 str(d / "lib.so"),
                                 str(d / "paged_attention.cu")],
                                stdout=sp.PIPE, stderr=sp.STDOUT, text=True)
-    libs = {"shipped": pa._lib()}
+    libs = {"shipped": build.bind("paged_attention", pa.SIGNATURES)}
     for name, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             fail(f"K5 sweep variant {name} did not build:\n{log[-3000:]}")
-        libs[name] = ctypes.CDLL(str(build.BUILD / f"sweep_k5_{name}"
-                                     / "lib.so"))
-        for n, (argtypes, restype) in pa.SIGNATURES.items():
-            fn = getattr(libs[name], n)
-            fn.argtypes, fn.restype = argtypes, restype
+        libs[name] = build.declare(ctypes.CDLL(str(
+            build.BUILD / f"sweep_k5_{name}" / "lib.so")), pa.SIGNATURES)
         emit({"phase": "tile_sweep", "kernel": "paged_attention",
               "variant": name, "ptxas": ptxas_report(log)})
     rng = np.random.default_rng(seed + 1)
@@ -2435,17 +2430,13 @@ def phase_paged_sweep(seed):
         chosen = pa.splits_for(case["q"], case["pool_k"],
                                case["block_table"])
         times = {}
-        shipped_lib = pa._lib
-        try:
-            for name, lib in libs.items():
-                pa._lib = lambda lib=lib: lib
-                sweep = name in ("shipped", "half_warps")
+        for name, lib in libs.items():
+            sweep = name in ("shipped", "half_warps")
+            with kernel_library("paged_attention", lib):
                 for S in (sorted({1, chosen, 2 * chosen}) if sweep
                           else [chosen]):
                     st = timer.stats(lambda: pa._launch(**case, splits=S))
                     times[f"{name}_S{S}"] = [st["ms"], st["min"], st["max"]]
-        finally:
-            pa._lib = shipped_lib
         emit({"phase": "tile_sweep", "kernel": "paged_attention", **desc,
               "chosen_splits": chosen,
               "times_ms_median_min_max": times,
@@ -2843,24 +2834,27 @@ def lstm_bound(B, T, H, kind):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-class lstm_library:
-    """Within the block, the lstm_scan wrappers launch the kernels of
-    ``lib`` (a variant of lstm_variant_load) in place of the shipped
-    library."""
+class kernel_library:
+    """Within the block, the wrappers of ``csrc/<name>.cu`` launch the
+    kernels of ``lib`` (an edited copy's library, its entry points
+    declared) in place of the shipped library."""
 
-    def __init__(self, lib):
-        self.lib = lib
+    def __init__(self, name, lib):
+        self.name, self.lib = name, lib
 
     def __enter__(self):
-        from neuralnetworklibrary_tpu_torch.ops import lstm_scan as ls
+        from neuralnetworklibrary_tpu_torch.kernels import build
 
-        self.saved = ls._lib
-        ls._lib = lambda: self.lib
+        self.saved = build.BOUND.get(self.name)
+        build.BOUND[self.name] = self.lib
 
     def __exit__(self, *exc):
-        from neuralnetworklibrary_tpu_torch.ops import lstm_scan as ls
+        from neuralnetworklibrary_tpu_torch.kernels import build
 
-        ls._lib = self.saved
+        if self.saved is None:
+            del build.BOUND[self.name]
+        else:
+            build.BOUND[self.name] = self.saved
 
 
 def lstm_timing_inputs(rng, B, T, H):
@@ -2896,7 +2890,7 @@ def phase_lstm_timing(seed):
         st = {"lstm_fwd": timer.stats(lambda: lstm_fwd(*fargs)),
               "lstm_bwd": timer.stats(lambda: lstm_bwd(*bargs))}
         # the per-step floor: the same launch with only the grid barriers
-        with lstm_library(LSTM_FLOOR["lib"]):
+        with kernel_library("lstm_scan", LSTM_FLOOR["lib"]):
             floor = {"lstm_fwd": timer.stats(lambda: lstm_fwd(*fargs)),
                      "lstm_bwd": timer.stats(lambda: lstm_bwd(*bargs))}
         plain = {"lstm_fwd": timer.stats(lambda: reference_lstm_fwd(*fargs),
@@ -3036,7 +3030,7 @@ def phase_lstm_sweep(seed):
                         "units_per_block": plan["units_per_block"],
                         "smem_bytes": plan["smem_bytes"]}
             for label, lib in libs.items():
-                with lstm_library(lib):
+                with kernel_library("lstm_scan", lib):
                     st = timer.stats(lambda: fn(*args[name]), reps=10)
                 times[name][label] = {"ms": st["ms"],
                                       "spread": [st["min"], st["max"]]}
@@ -3048,12 +3042,12 @@ def phase_lstm_sweep(seed):
                               for i, a in enumerate(bargs)]}
         stamps = (ctypes.c_longlong * 4096)()
         count = ctypes.c_int()
-        with lstm_library(trace_lib):
+        with kernel_library("lstm_scan", trace_lib):
             for name, fn in fns.items():
-                _run(trace_lib.nnl_lstm_trace, stamps, ctypes.byref(count))
+                _run("nnl_lstm_trace", stamps, ctypes.byref(count))
                 fn(*targs[name])
                 torch.cuda.synchronize()
-                _run(trace_lib.nnl_lstm_trace, stamps, ctypes.byref(count))
+                _run("nnl_lstm_trace", stamps, ctypes.byref(count))
                 trace[name] = lstm_trace_phases(stamps[:count.value])
         clocks = subprocess.run(
             ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
@@ -5204,17 +5198,14 @@ def phase_tile_sweep(seed):
                                  str(d / "lib.so"),
                                  str(d / "flash_attention.cu")],
                                 stdout=sp.PIPE, stderr=sp.STDOUT, text=True)
-    libs = {"shipped": fa._lib()}
+    libs = {"shipped": build.bind("flash_attention", fa.SIGNATURES)}
     reports = {}
     for label, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             fail(f"tile sweep variant {label} did not build:\n{log[-3000:]}")
-        libs[label] = ctypes.CDLL(str(build.BUILD / f"sweep_{label}"
-                                      / "lib.so"))
-        for n, (argtypes, restype) in fa.SIGNATURES.items():
-            fn = getattr(libs[label], n)
-            fn.argtypes, fn.restype = argtypes, restype
+        libs[label] = build.declare(ctypes.CDLL(str(
+            build.BUILD / f"sweep_{label}" / "lib.so")), fa.SIGNATURES)
         reports[label] = {k: r for k, r in ptxas_report(log).items()
                           if "_tc_kernel" in k}
 
@@ -5263,10 +5254,8 @@ def phase_tile_sweep(seed):
         return {"flash_bwd_dkv": timer.stats(
             lambda: fa.flash_bwd_dkv(*args, *opt, **kw))}
 
-    lib_of = fa._lib
-    try:
-        for family, label, consts in variants:
-            fa._lib = lambda lib=libs[label]: lib
+    for family, label, consts in variants:
+        with kernel_library("flash_attention", libs[label]):
             times = {}
             for shape, (args, opt, kw) in shapes.items():
                 hd = args[0].shape[3]
@@ -5284,8 +5273,6 @@ def phase_tile_sweep(seed):
                   "constants": consts or "as shipped",
                   "shipped": family == "shipped", "times_ms": times,
                   "ptxas": reports.get(label, "as in the build phase")})
-    finally:
-        fa._lib = lib_of
 
 
 def main():

@@ -1,1 +1,2 @@
-"""Build and load code for the hand-written CUDA kernels in ``csrc/``."""
+"""Build, load and bind the port's native libraries: the CUDA kernels in
+``csrc/`` and the host C++ helpers in ``native/``."""

@@ -20,9 +20,10 @@ from __future__ import annotations
 
 import bisect
 import ctypes
-import functools
 
 import torch
+
+from neuralnetworklibrary_tpu_torch.kernels import build
 
 # constants of csrc/adam.cu (kMaxTensors, kChunk), which the card test
 # holds against the library's nnl_adam_layout
@@ -51,21 +52,10 @@ class Table(ctypes.Structure):
                 ("decay", _F * MAX_TENSORS), ("n", ctypes.c_int)]
 
 
-@functools.cache
-def _lib():
-    from neuralnetworklibrary_tpu_torch.kernels.build import load
-
-    lib = load("adam")
-    for name, (argtypes, restype) in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, restype
-    return lib
-
-
 def layout() -> tuple:
     """The kernel library's (MAX_TENSORS, CHUNK, table bytes)."""
     out = (ctypes.c_int * 3)()
-    _lib().nnl_adam_layout(out)
+    build.bind("adam", SIGNATURES).nnl_adam_layout(out)
     return tuple(out)
 
 
@@ -165,7 +155,6 @@ def adam(ps, gs, ms, vs, decays, *, lr, b1, omb1, b2, omb2, bc1, bc2, eps,
                          f"{device}")
     scalars = (lr, b1, omb1, b2, omb2, bc1, bc2, eps)
     numels = [p.numel() for p in ps]
-    lib = _lib()
     ptrs = [[t.data_ptr() for t in ts] for ts in (ps, gs, ms, vs)]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -178,12 +167,9 @@ def adam(ps, gs, ms, vs, decays, *, lr, b1, omb1, b2, omb2, bc1, bc2, eps,
             t.first[:n + 1] = [f for _, f in entries] + [units]
             t.decay[:n] = [decays[i] for i in idx]
             t.n = n
-            err = lib.nnl_adam(ctypes.byref(t), *scalars,
-                               None if scale is None else scale.data_ptr(),
-                               stream)
-            if err != 0:
-                raise RuntimeError("adam kernel launch failed: "
-                                   + lib.nnl_adam_error_string(err).decode())
+            build.check_call(
+                "adam", SIGNATURES, "nnl_adam", ctypes.byref(t), *scalars,
+                None if scale is None else scale.data_ptr(), stream)
             adam.launches += 1
             adam.elements += sum(numels[i] for i in idx)
 

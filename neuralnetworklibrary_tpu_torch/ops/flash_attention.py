@@ -51,6 +51,7 @@ import math
 
 import torch
 
+from neuralnetworklibrary_tpu_torch.kernels import build
 from neuralnetworklibrary_tpu_torch.utils import tracing
 
 _NEG_INF = -1e30
@@ -75,17 +76,7 @@ SIGNATURES = {
     "nnl_flash_drop_keep": ([_P] + [_I] * 6 + [_F, _P, _P], _I),
     "nnl_flash_error_string": ([_I], ctypes.c_char_p),
 }
-
-
-@functools.cache
-def _lib():
-    from neuralnetworklibrary_tpu_torch.kernels.build import load
-
-    lib = load("flash_attention")
-    for name, (argtypes, restype) in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, restype
-    return lib
+_run = functools.partial(build.check_call, "flash_attention", SIGNATURES)
 
 
 def use_flash(flash_attention, device_type: str, dtype,
@@ -277,13 +268,6 @@ def _check(named: dict, dtype, device):
                              f"for the bf16 kernels")
 
 
-def _run(fn, *args):
-    err = fn(*args)
-    if err != 0:
-        raise RuntimeError("flash_attention kernel launch failed: "
-                           + _lib().nnl_flash_error_string(err).decode())
-
-
 def _shape_args(q, sm_scale, causal, window, dropout, seed):
     B, T, H, hd = q.shape
     if hd not in _HEAD_DIMS:
@@ -331,7 +315,7 @@ def flash_fwd(q, k, v, sm_scale, window=0, dropout=0.0, seed=0, *,
     o = torch.empty_like(q)
     lse = torch.empty(B * H, T, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        _run(_lib().nnl_flash_fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        _run("nnl_flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
              *_option_ptrs(q, bias, kvm, qs),
              None if sink is None else sink.data_ptr(), o.data_ptr(),
              lse.data_ptr(), *args)
@@ -355,7 +339,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, sm_scale, window=0, dropout=0.0,
     args = _shape_args(q, sm_scale, causal, window, dropout, seed)
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        _run(_lib().nnl_flash_bwd_dq, *ptrs,
+        _run("nnl_flash_bwd_dq", *ptrs,
              *_option_ptrs(q, bias, kvm, qs), dq.data_ptr(), *args)
     flash_bwd_dq.launches += 1
     return dq
@@ -370,7 +354,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, sm_scale, window=0, dropout=0.0,
     args = _shape_args(q, sm_scale, causal, window, dropout, seed)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
-        _run(_lib().nnl_flash_bwd_dkv, *ptrs,
+        _run("nnl_flash_bwd_dkv", *ptrs,
              *_option_ptrs(q, bias, kvm, qs), dk.data_ptr(), dv.data_ptr(),
              *args)
     flash_bwd_dkv.launches += 1
@@ -413,7 +397,7 @@ def flash_bwd_dkv_dbias(q, k, v, do, lse, delta, sm_scale, window=0,
                         device=q.device)
             if q.dtype == torch.bfloat16 else None)
     with torch.cuda.device(q.device):
-        _run(_lib().nnl_flash_bwd_dkv_dbias, *ptrs,
+        _run("nnl_flash_bwd_dkv_dbias", *ptrs,
              *_option_ptrs(q, bias, kvm, qs), dk.data_ptr(), dv.data_ptr(),
              dbias.data_ptr(), None if part is None else part.data_ptr(),
              *args)
@@ -447,7 +431,7 @@ def kernel_drop_keep(seeds, n_bh: int, n_q: int, n_k: int, rate: float,
     out = torch.empty(seeds.numel(), n_bh, n_q, n_k, dtype=torch.uint8,
                       device=seeds.device)
     with torch.cuda.device(seeds.device):
-        _run(_lib().nnl_flash_drop_keep, seeds.data_ptr(), seeds.numel(),
+        _run("nnl_flash_drop_keep", seeds.data_ptr(), seeds.numel(),
              n_bh, n_q, n_k, q0, k0, float(rate), out.data_ptr(),
              torch.cuda.current_stream(seeds.device).cuda_stream)
     return out.bool()

@@ -36,6 +36,8 @@ import functools
 
 import torch
 
+from neuralnetworklibrary_tpu_torch.kernels import build
+
 _BF16 = torch.bfloat16
 
 # Constants of csrc/lstm_scan.cu the plan depends on
@@ -74,27 +76,10 @@ SIGNATURES = {
     "nnl_lstm_trace": ([_P, _P], _I),
     "nnl_lstm_error_string": ([_I], ctypes.c_char_p),
 }
+_run = functools.partial(build.check_call, "lstm_scan", SIGNATURES)
 # grid-barrier counters by (device, stream): each launch leaves its
 # counter's low bits at zero, and launches on one stream do not overlap
 _COUNTERS = {}
-
-
-@functools.cache
-def _lib():
-    from neuralnetworklibrary_tpu_torch.kernels.build import load
-
-    lib = load("lstm_scan")
-    for name, (argtypes, restype) in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, restype
-    return lib
-
-
-def _run(fn, *args):
-    err = fn(*args)
-    if err != 0:
-        raise RuntimeError("lstm_scan kernel launch failed: "
-                           + _lib().nnl_lstm_error_string(err).decode())
 
 
 def _cdiv(a, b):
@@ -205,7 +190,7 @@ def make_plan(kind: str, B: int, H: int, sm_count: int, cluster: int,
 def _max_clusters(index: int, kind: str, cluster: int, smem: int) -> int:
     out = ctypes.c_int()
     with torch.cuda.device(index):
-        _run(_lib().nnl_lstm_max_clusters, _KIND[kind], cluster, smem,
+        _run("nnl_lstm_max_clusters", _KIND[kind], cluster, smem,
              ctypes.byref(out))
     return out.value
 
@@ -375,7 +360,7 @@ def lstm_fwd(xp_tm, w, h0, c0, *, cluster=None, stages=STAGES):
     cT = torch.empty_like(hT)
     scratch = torch.empty(2, B, plan["ld"], dtype=_BF16, device=dev)
     with torch.cuda.device(dev):
-        _run(_lib().nnl_lstm_fwd, xp_tm.data_ptr(), w.data_ptr(),
+        _run("nnl_lstm_fwd", xp_tm.data_ptr(), w.data_ptr(),
              h0.data_ptr(), c0.data_ptr(), ys.data_ptr(), cs.data_ptr(),
              gates.data_ptr(), hT.data_ptr(), cT.data_ptr(),
              scratch.data_ptr(), _counter(dev).data_ptr(), _plan_array(plan),
@@ -412,7 +397,7 @@ def lstm_bwd(wT, gates, cs, cprev, dys, dhT, dcT, *, cluster=None,
     dc0 = torch.empty_like(dh0)
     scratch = torch.empty(2, B, plan["ld"], dtype=_BF16, device=dev)
     with torch.cuda.device(dev):
-        _run(_lib().nnl_lstm_bwd, wT.data_ptr(), gates.data_ptr(),
+        _run("nnl_lstm_bwd", wT.data_ptr(), gates.data_ptr(),
              cs.data_ptr(), cprev.data_ptr(), dys.data_ptr(),
              dhT.data_ptr(), dcT.data_ptr(), dgates.data_ptr(),
              dh0.data_ptr(), dc0.data_ptr(), scratch.data_ptr(),

@@ -23,6 +23,8 @@ import math
 
 import torch
 
+from neuralnetworklibrary_tpu_torch.kernels import build
+
 _NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # positions per staging chunk (kChunk in csrc/paged_attention.cu): the
@@ -47,18 +49,8 @@ SIGNATURES = {
 _TICKETS = {}
 
 
-@functools.cache
-def _lib():
-    from neuralnetworklibrary_tpu_torch.kernels.build import load
-
-    lib = load("paged_attention")
-    for name, (argtypes, restype) in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, restype
-    return lib
-
-
-def _tickets(lib, device, stream, B, H, Hkv):
+def _tickets(device, stream, B, H, Hkv):
+    lib = build.bind("paged_attention", SIGNATURES)
     n = lib.nnl_paged_attention_tickets(B, H, Hkv)
     key = (device, stream)
     buf = _TICKETS.get(key)
@@ -72,7 +64,8 @@ def _tickets(lib, device, stream, B, H, Hkv):
 def _card(index: int, H: int, Hkv: int, hd: int, q_dtype, kv_dtype):
     """(SMs, blocks of the kernel one SM holds) on card ``index``."""
     with torch.cuda.device(index):
-        per_sm = _lib().nnl_paged_attention_blocks_per_sm(
+        lib = build.bind("paged_attention", SIGNATURES)
+        per_sm = lib.nnl_paged_attention_blocks_per_sm(
             H, Hkv, hd, _DTYPE_CODE[q_dtype], _DTYPE_CODE[kv_dtype])
     if per_sm <= 0:
         raise RuntimeError(f"paged_attention: no occupancy for H {H}, Hkv "
@@ -91,7 +84,8 @@ def splits_for(q, pool_k, block_table) -> int:
     index = (q.device.index if q.device.index is not None
              else torch.cuda.current_device())
     sms, per_sm = _card(index, H, Hkv, hd, q.dtype, pool_k.dtype)
-    units = _lib().nnl_paged_attention_tickets(B, H, Hkv)
+    lib = build.bind("paged_attention", SIGNATURES)
+    units = lib.nnl_paged_attention_tickets(B, H, Hkv)
     return num_splits(units, block_table.shape[1] * bs, sms, per_sm)
 
 
@@ -218,7 +212,6 @@ def _launch(q, pool_k, pool_v, block_table, offsets, *, splits=None,
     out = torch.empty_like(q)
     if B == 0:
         return out
-    lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
     part_acc = part_ml = tickets = None
@@ -227,22 +220,19 @@ def _launch(q, pool_k, pool_v, block_table, offsets, *, splits=None,
                                device=q.device)
         part_ml = torch.empty((B, H, splits, 2), dtype=torch.float32,
                               device=q.device)
-        tickets = _tickets(lib, q.device, stream, B, H, Hkv)
+        tickets = _tickets(q.device, stream, B, H, Hkv)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    err = lib.nnl_paged_attention(
-        ptr(q), ptr(pool_k), ptr(pool_v),
-        ptr(pool_k_scale if quant else None),
+    build.check_call(
+        "paged_attention", SIGNATURES, "nnl_paged_attention",
+        ptr(q), ptr(pool_k), ptr(pool_v), ptr(pool_k_scale if quant else None),
         ptr(pool_v_scale if quant else None), ptr(sink),
         ptr(block_table), ptr(off), ptr(out), ptr(part_acc), ptr(part_ml),
         ptr(tickets), B, H, Hkv, hd, N, bs, MB, float(sm_scale),
         int(window), int(splits), _DTYPE_CODE[q.dtype],
         _DTYPE_CODE[pool_k.dtype], stream)
-    if err != 0:
-        raise RuntimeError("paged_attention kernel launch failed: "
-                           + lib.nnl_cuda_error_string(err).decode())
     paged_attention.launches += 1
     return out
 

@@ -6,7 +6,7 @@ A copy of ``neuralnetworklibrary_tpu/utils/cocoeval.py`` (the reference's
 vendored pycocotools, bbox path only, with its Pascal ``ignore``
 modification, pycocotools/cocoeval.py:106-119).  The IoU matrix and the
 greedy matching run in C++ (``native/cocoeval.cpp``, built with g++ at
-first use by ``native.build``); a failed build raises.  The numpy
+first use by ``kernels.build``); a failed build raises.  The numpy
 :func:`iou_xywh_numpy` and :func:`match_greedy_numpy` compute the same
 and are the plain versions the tests hold the C++ against.
 """
@@ -20,37 +20,31 @@ from collections import defaultdict
 
 import numpy as np
 
-_native_lib = None
+from neuralnetworklibrary_tpu_torch.kernels import build
 
-
-def _native():
-    """The C++ helpers (native/cocoeval.cpp), built at first use."""
-    global _native_lib
-    if _native_lib is None:
-        from neuralnetworklibrary_tpu_torch.native.build import load
-
-        lib = load("cocoeval")
-        i64, u8p, f64p = (ctypes.c_int64, ctypes.POINTER(ctypes.c_uint8),
-                          ctypes.POINTER(ctypes.c_double))
-        lib.iou_xywh.argtypes = [f64p, f64p, u8p, i64, i64, f64p]
-        lib.match_greedy.argtypes = [f64p, u8p, u8p, f64p, i64, i64, i64,
-                                     ctypes.POINTER(i64), ctypes.POINTER(i64),
-                                     u8p]
-        lib.iou_xywh.restype = lib.match_greedy.restype = None
-        _native_lib = lib
-    return _native_lib
+_I64, _U8P, _F64P, _I64P = (ctypes.c_int64, ctypes.POINTER(ctypes.c_uint8),
+                            ctypes.POINTER(ctypes.c_double),
+                            ctypes.POINTER(ctypes.c_int64))
+# (argtypes, restype) of every C entry point of native/cocoeval.cpp
+SIGNATURES = {
+    # dets, gts, iscrowd, D, G, out
+    "iou_xywh": ([_F64P, _F64P, _U8P, _I64, _I64, _F64P], None),
+    # ious, gt_ig, iscrowd, thrs, D, G, T, dtm, gtm, dt_ig
+    "match_greedy": ([_F64P, _U8P, _U8P, _F64P, _I64, _I64, _I64, _I64P,
+                      _I64P, _U8P], None),
+}
 
 
 def _f64p(a):
-    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+    return a.ctypes.data_as(_F64P)
 
 
 def _u8p(a):
-    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+    return a.ctypes.data_as(_U8P)
 
 
 def _i64p(a):
-    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+    return a.ctypes.data_as(_I64P)
 
 
 def bbox_iou_xywh(dets: np.ndarray, gts: np.ndarray, iscrowd) -> np.ndarray:
@@ -64,7 +58,8 @@ def bbox_iou_xywh(dets: np.ndarray, gts: np.ndarray, iscrowd) -> np.ndarray:
     g = np.ascontiguousarray(gts, np.float64)
     c = np.ascontiguousarray(np.asarray(iscrowd), np.uint8)
     out = np.empty((D, G), np.float64)
-    _native().iou_xywh(_f64p(d), _f64p(g), _u8p(c), D, G, _f64p(out))
+    build.bind("cocoeval", SIGNATURES).iou_xywh(_f64p(d), _f64p(g), _u8p(c),
+                                                D, G, _f64p(out))
     return out
 
 
@@ -98,7 +93,7 @@ def match_greedy(ious, gt_ig, iscrowd, thrs):
     dtm = np.zeros((T, D), np.int64)
     gtm = np.zeros((T, G), np.int64)
     dt_ig = np.zeros((T, D), np.uint8)
-    _native().match_greedy(
+    build.bind("cocoeval", SIGNATURES).match_greedy(
         _f64p(np.ascontiguousarray(ious, np.float64)),
         _u8p(np.ascontiguousarray(gt_ig, np.uint8)),
         _u8p(np.ascontiguousarray(np.asarray(iscrowd), np.uint8)),

@@ -1,10 +1,9 @@
 """CPU checks of the port's kernel interface that only the card would
-otherwise show: the ctypes argtypes of every C entry point of
-``csrc/flash_attention.cu``, ``csrc/paged_attention.cu`` and
-``csrc/lstm_scan.cu`` against its signature in the source (a wrong one
-passes a 64-bit pointer as a 32-bit int), the rebuild rule of
-``kernels/build.py`` when a header changes, and the bf16 kernels'
-16-byte alignment check.  No nvcc and no card needed.
+otherwise show: the ctypes argtypes of every C entry point of every
+``csrc/*.cu`` against its signature in the source (a wrong one passes a
+64-bit pointer as a 32-bit int), the rebuild rule of ``kernels/build.py``
+when a header changes, and the bf16 kernels' 16-byte alignment check.  No
+nvcc and no card needed.
 """
 
 from __future__ import annotations
@@ -17,6 +16,7 @@ import pytest
 import torch
 
 from neuralnetworklibrary_tpu_torch.kernels import build
+from neuralnetworklibrary_tpu_torch.ops import adam
 from neuralnetworklibrary_tpu_torch.ops import flash_attention as fa
 from neuralnetworklibrary_tpu_torch.ops import lstm_scan as ls
 from neuralnetworklibrary_tpu_torch.ops import paged_attention as pa
@@ -26,13 +26,13 @@ _SOURCE = build.CSRC / "flash_attention.cu"
 
 def _c_signatures(path):
     """{name: (argument kinds, return kind)} of the functions inside the
-    ``extern "C"`` block of a CUDA source; a kind is "pointer", "int",
-    "float" or "char*"."""
+    ``extern "C"`` block of a CUDA source; an argument's kind is "pointer",
+    "int" or "float", a return's "int", "void" or "char*"."""
     text = path.read_text()
     block = text[text.index('extern "C" {'):]
     sigs = {}
     for ret, name, params in re.findall(
-            r"^(int|const char\*)\s+(nnl_\w+)\(([^)]*)\)\s*\{", block,
+            r"^(int|void|const char\*)\s+(nnl_\w+)\(([^)]*)\)\s*\{", block,
             flags=re.M):
         kinds = []
         for param in " ".join(params.split()).split(","):
@@ -44,56 +44,31 @@ def _c_signatures(path):
                 kinds.append("float")
             else:
                 raise AssertionError(f"{name}: unparsed parameter {param!r}")
-        sigs[name] = (kinds, "char*" if ret == "const char*" else "int")
+        sigs[name] = (kinds, {"const char*": "char*"}.get(ret, ret))
     return sigs
 
 
-_C = _c_signatures(_SOURCE)
+# the ctypes table of each csrc/*.cu
+_TABLES = {"adam": adam.SIGNATURES, "flash_attention": fa.SIGNATURES,
+           "lstm_scan": ls.SIGNATURES, "paged_attention": pa.SIGNATURES}
+_C = {source: _c_signatures(build.CSRC / f"{source}.cu")
+      for source in build.sources()}
 _KIND = {ctypes.c_void_p: "pointer", ctypes.c_int: "int",
-         ctypes.c_float: "float", ctypes.c_char_p: "char*"}
+         ctypes.c_float: "float", ctypes.c_char_p: "char*", None: "void"}
 
 
-def test_every_entry_point_has_a_table_row():
-    assert _C, "no extern \"C\" functions parsed"
-    assert sorted(_C) == sorted(fa.SIGNATURES)
+@pytest.mark.parametrize("source", build.sources())
+def test_every_entry_point_has_a_table_row(source):
+    assert _C[source], "no extern \"C\" functions parsed"
+    assert sorted(_C[source]) == sorted(_TABLES[source])
 
 
-@pytest.mark.parametrize("name", sorted(_C))
-def test_argtypes_match_the_c_signature(name):
-    kinds, ret = _C[name]
-    argtypes, restype = fa.SIGNATURES[name]
-    assert [_KIND[t] for t in argtypes] == kinds
-    assert _KIND[restype] == ret
-
-
-_PAGED = _c_signatures(build.CSRC / "paged_attention.cu")
-
-
-def test_every_paged_entry_point_has_a_table_row():
-    assert _PAGED, "no extern \"C\" functions parsed"
-    assert sorted(_PAGED) == sorted(pa.SIGNATURES)
-
-
-@pytest.mark.parametrize("name", sorted(_PAGED))
-def test_paged_argtypes_match_the_c_signature(name):
-    kinds, ret = _PAGED[name]
-    argtypes, restype = pa.SIGNATURES[name]
-    assert [_KIND[t] for t in argtypes] == kinds
-    assert _KIND[restype] == ret
-
-
-_LSTM = _c_signatures(build.CSRC / "lstm_scan.cu")
-
-
-def test_every_lstm_entry_point_has_a_table_row():
-    assert _LSTM, "no extern \"C\" functions parsed"
-    assert sorted(_LSTM) == sorted(ls.SIGNATURES)
-
-
-@pytest.mark.parametrize("name", sorted(_LSTM))
-def test_lstm_argtypes_match_the_c_signature(name):
-    kinds, ret = _LSTM[name]
-    argtypes, restype = ls.SIGNATURES[name]
+@pytest.mark.parametrize("source, name", [
+    (source, name) for source in build.sources()
+    for name in sorted(_C[source])])
+def test_argtypes_match_the_c_signature(source, name):
+    kinds, ret = _C[source][name]
+    argtypes, restype = _TABLES[source][name]
     assert [_KIND[t] for t in argtypes] == kinds
     assert _KIND[restype] == ret
 
@@ -103,10 +78,11 @@ def test_signature_parser_reads_each_kind(tmp_path):
     path = tmp_path / "probe.cu"
     path.write_text('extern "C" {\nint nnl_x(const void* a, int n,\n'
                     '          float r, void* stream) {\n  return 0;\n}\n'
-                    'const char* nnl_y(int e) {\n  return 0;\n}\n}\n')
+                    'const char* nnl_y(int e) {\n  return 0;\n}\n'
+                    'void nnl_z(int* out) {\n}\n}\n')
     assert _c_signatures(path) == {
         "nnl_x": (["pointer", "int", "float", "pointer"], "int"),
-        "nnl_y": (["int"], "char*")}
+        "nnl_y": (["int"], "char*"), "nnl_z": (["pointer"], "void")}
 
 
 def _touch(path, t):

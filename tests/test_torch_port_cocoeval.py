@@ -128,7 +128,7 @@ def test_native_helpers_match_numpy(seed):
 
 
 def test_native_library_is_built_in_the_port():
-    from neuralnetworklibrary_tpu_torch.native import build
+    from neuralnetworklibrary_tpu_torch.kernels import build
 
     lib = build.load("cocoeval")
     assert build.library_path("cocoeval").is_file()

@@ -18,6 +18,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from neuralnetworklibrary_tpu_torch.data import loader
 from neuralnetworklibrary_tpu_torch.data.packing import pack_documents
+from neuralnetworklibrary_tpu_torch.kernels import build
 from neuralnetworklibrary_tpu_torch.learner import Learner
 from neuralnetworklibrary_tpu_torch.nn import transformer as tr
 from neuralnetworklibrary_tpu_torch.ops import flash_attention as fa
@@ -46,7 +47,7 @@ def fake_kernels(monkeypatch):
     """The flash wrappers on CPU tensors with kernels that do nothing, so
     their checks, launch counts and autograd Function run here."""
     lib = types.SimpleNamespace(**{n: (lambda *a: 0) for n in fa.SIGNATURES})
-    monkeypatch.setattr(fa, "_lib", lambda: lib)
+    monkeypatch.setitem(build.BOUND, "flash_attention", lib)
     monkeypatch.setattr(fa, "_shape_args", lambda *a: ())
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
