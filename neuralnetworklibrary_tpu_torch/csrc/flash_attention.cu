@@ -29,8 +29,10 @@
 // only): query qp sees key kp only if kp >= its start, one more compare in
 // the position test (the bf16 kernels test it on EDGE tiles only); K1/K2
 // (bf16) skip the key tiles that lie wholly before the smallest start of a
-// block's rows; a per-head float32 sink logit (K1 only) that joins each
-// row's softmax normalizer at the end: m' = max(m, sink), l' = l e^(m - m') + e^(sink - m'), lse = m' + log l',
+// block's rows, and K3 (bf16) ends each key block's query range at the end
+// of its keys' documents (dkv_doc_ends); a per-head float32 sink logit
+// (K1 only) that joins each row's softmax normalizer at the end:
+// m' = max(m, sink), l' = l e^(m - m') + e^(sink - m'), lse = m' + log l',
 // so the backward's p = exp(s - lse) needs no change.
 //
 // Layout: q, k, v, o, do, dq, dk, dv are (B, T, H, hd) row-major, so a row
@@ -80,11 +82,14 @@
 //   accumulation sees the mask, scaled by 1/(1 - rate).
 //
 // Later work: a persistent grid; fp8; native GQA (read the Hkv heads
-// through the tensor maps); head dims other than 64 and 128; in K3, the
-// query tiles of other documents skipped (it visits the whole causal
-// range: a consumer-side skip measured 17% faster at the Qwen3 shape but
-// spilled at hd 128) and a q_start-only instantiation (packed rows run the
-// options' path).
+// through the tensor maps); head dims other than 64 and 128; a
+// q_start-only instantiation (packed rows run the options' path, whose
+// tiles cost more than the plain path's even inside a document).  K3 ends
+// its query range at its keys' documents on packed rows (a bound each role
+// takes outside its per-tile loop; a consumer-side skip inside the loop
+// spilled at hd 128), except where it writes dS for a bias's gradient: the
+// batch sum reads every causal pair of that scratch, so the whole range is
+// kept there.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1653,6 +1658,85 @@ __device__ __forceinline__ void query_range(int k0, int rows, int Tn,
   }
 }
 
+// Where a K3 block's causal range ends on packed rows: into last[c], for
+// each consumer c (keys kb0 + 64 c .. kb0 + 64 c + 63), the largest query
+// qp in [kb0, T) whose document start, clamped to qp, is at or before the
+// consumer's last key.  A query past it starts its document after every
+// one of those keys, so it attends none of them.  On packed rows that is
+// the end of the document that holds the consumer's last key.  q_start
+// need not be sorted.  One strided pass over the row's starts from kb0,
+// maxima by warp, then in shared memory; all threads of the block call it.
+template <int NC>
+__device__ __forceinline__ void dkv_doc_ends(const int* __restrict__ qs_b,
+                                             int kb0, int Tn, int* last) {
+  if (threadIdx.x < NC) last[threadIdx.x] = kb0;
+  __syncthreads();
+  int m[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) m[c] = kb0;  // kb0 itself always qualifies
+#pragma unroll 4
+  for (int t = kb0 + threadIdx.x; t < Tn; t += 128 * (NC + 1)) {
+    const int s = min(qs_b[t], t);
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      if (s <= kb0 + 64 * c + 63) m[c] = t;
+  }
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int w = __reduce_max_sync(0xffffffffu, m[c]);
+    if ((threadIdx.x & 31) == 0) atomicMax(&last[c], w);
+  }
+  __syncthreads();
+}
+
+// The block's last query tile on the options' path: its causal range's
+// (i_end) where nothing else ends it, else the tile of the last query of
+// the keys' documents (doc_last[NC - 1], dkv_doc_ends).
+template <int BQ, int NC, bool OPT>
+__device__ __forceinline__ int dkv_last_tile(const int* doc_last, int i_end) {
+  return OPT ? min(i_end, doc_last[NC - 1] / BQ) : i_end;
+}
+
+// K3's TMA thread: k and v of the block's ROWS keys at kb0, then the n
+// query tiles from i_begin (q, dO and, given by bias, the bias tile) into
+// the ring; a stage is refilled once the stagers have copied its last dS
+// out and marked it copied.  tc_produce's loop with one counter: with a
+// bound the parameters do not give, tc_produce's spilled at hd 128.
+template <int HD, int BQ, int STAGES, int ROWS, class Extra>
+__device__ __forceinline__ void dkv_produce(
+    uint8_t* sm, uint64_t* bars, const CUtensorMap* tm_k,
+    const CUtensorMap* tm_v, const CUtensorMap* tm_q, const CUtensorMap* tm_do,
+    int kb0, int i_begin, int n, int h, int b, const Extra& extra,
+    uint64_t* copied) {
+  using L = TcSmem<HD, BQ, 2, STAGES, ROWS>;
+  uint64_t* full = bars + 1;
+  prefetch_map(tm_k);
+  prefetch_map(tm_v);
+  prefetch_map(tm_q);
+  prefetch_map(tm_do);
+  mbar_expect_tx(bars, 2 * L::kQ);
+#pragma unroll
+  for (int hh = 0; hh < L::kNH; ++hh) {
+    tma_load_4d(sm + hh * ROWS * kHalfRow, tm_k, bars, hh * 64, h, kb0, b);
+    tma_load_4d(sm + L::kQ + hh * ROWS * kHalfRow, tm_v, bars, hh * 64, h,
+                kb0, b);
+  }
+  for (int it = 0; it < n; ++it) {
+    const int st = it % STAGES;
+    mbar_wait(&copied[st], (it / STAGES) & 1);
+    mbar_expect_tx(&full[st], 2 * L::kKV + extra.bytes());
+    uint8_t* kt = sm + L::kRing + st * 2 * L::kKV;
+#pragma unroll
+    for (int hh = 0; hh < L::kNH; ++hh) {
+      tma_load_4d(kt + hh * BQ * kHalfRow, tm_q, &full[st], hh * 64, h,
+                  (i_begin + it) * BQ, b);
+      tma_load_4d(kt + L::kKV + hh * BQ * kHalfRow, tm_do, &full[st], hh * 64,
+                  h, (i_begin + it) * BQ, b);
+    }
+    extra.load(st, i_begin + it, &full[st]);
+  }
+}
+
 // The producer's stagers.  Per query tile: once the consumers have
 // released the stage (empty), the dS they left in its bias tile (tile it -
 // STAGES, when part_bh is given) goes to the scratch row by row, 16-byte
@@ -1817,7 +1901,12 @@ __device__ __forceinline__ void dkv_grads_any(float (&s)[BQ / 2],
 }
 
 // part (B*H, Tp, Tp), when given (with a bias), receives dS of every pair
-// of the query tiles each consumer visits; bf16 dk, dv as K2's dq.
+// of the query tiles each consumer visits; bf16 dk, dv as K2's dq.  With
+// q_start and no part, each consumer's range ends at its keys' documents
+// (dkv_doc_ends): the tiles past it hold no attended pair.  part keeps the
+// whole causal range, as the batch sum reads dS of every causal pair.
+// tiles, when given, gains per options' block the query tiles its range
+// holds and those of the whole causal range.
 template <int HD, int BQ, int NC, int STAGES, bool OPT>
 __global__ void __launch_bounds__(128 * (NC + 1), 1) flash_bwd_dkv_tc_kernel(
     const __grid_constant__ CUtensorMap tm_q,
@@ -1827,7 +1916,8 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) flash_bwd_dkv_tc_kernel(
     const __grid_constant__ CUtensorMap tm_bias, int bias_tma,
     const float* __restrict__ lse, const float* __restrict__ delta,
     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-    float* __restrict__ part, int Tn, int Tp, int H, Opts op) {
+    float* __restrict__ part, unsigned long long* __restrict__ tiles, int Tn,
+    int Tp, int H, Opts op) {
   constexpr int ROWS = 64 * NC;
   constexpr int kPRegs = HD == 64 ? kDkvProducerRegs64 : kDkvProducerRegs128;
   // each thread's registers at launch, and a consumer's after the
@@ -1847,6 +1937,18 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) flash_bwd_dkv_tc_kernel(
   const int h = bh - b * H;
   int i_begin, i_end;
   query_range<BQ>(kb0, ROWS, Tn, op.causal, op.window, &i_begin, &i_end);
+  // On packed rows (q_start, and no dS scratch to fill) each consumer's
+  // range ends at its keys' documents: doc_last[c] holds consumer c's last
+  // query (dkv_doc_ends), INT_MAX where nothing ends it.  Each role takes
+  // the bound from there after the role split, the consumers again after
+  // their loop, and the TMA thread runs dkv_produce: no register holds the
+  // bound from before the split or through the consumers' loop, where ptxas
+  // has none to spare (it spilled at hd 128 otherwise).
+  __shared__ int doc_last[NC];
+  if (OPT && op.qs && part == nullptr)
+    dkv_doc_ends<NC>(op.qs + (size_t)b * Tn, kb0, Tn, doc_last);
+  else if (OPT && threadIdx.x < NC)
+    doc_last[threadIdx.x] = INT_MAX;
   uint64_t* copied = bars + 1 + 2 * STAGES;
   if (threadIdx.x == 0)
     for (int st = 0; st < STAGES; ++st) mbar_init(copied + st, kStagers);
@@ -1855,13 +1957,26 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) flash_bwd_dkv_tc_kernel(
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
     if constexpr (NC > 1 && kPRegs > 0) regs_dealloc<kPRegs>();
+    const int i_last = dkv_last_tile<BQ, NC, OPT>(doc_last, i_end);
     const bool tma_bias = OPT && op.bias && bias_tma;
     if (threadIdx.x == 0) {
-      const CUtensorMap* const stat[2] = {&tm_k, &tm_v};
       const BiasTiles<BQ, ROWS> bias{tma_bias ? &tm_bias : nullptr,
                                      sm + L::kBias, L::kBiasStage, kb0, h};
-      tc_produce<HD, BQ, 2, STAGES, ROWS>(sm, bars, stat, &tm_q, &tm_do, kb0,
-                                          i_begin, i_end, h, b, bias, copied);
+      if constexpr (OPT) {
+        if (tiles) {
+          atomicAdd(tiles, (unsigned long long)(i_last - i_begin + 1));
+          atomicAdd(tiles + 1, (unsigned long long)(i_end - i_begin + 1));
+        }
+        dkv_produce<HD, BQ, STAGES, ROWS>(sm, bars, &tm_k, &tm_v, &tm_q,
+                                          &tm_do, kb0, i_begin,
+                                          i_last - i_begin + 1, h, b, bias,
+                                          copied);
+      } else {
+        const CUtensorMap* const stat[2] = {&tm_k, &tm_v};
+        tc_produce<HD, BQ, 2, STAGES, ROWS>(sm, bars, stat, &tm_q, &tm_do,
+                                            kb0, i_begin, i_end, h, b, bias,
+                                            copied);
+      }
     } else if (threadIdx.x >= 32) {
       dkv_stage<HD, BQ, ROWS, STAGES, OPT>(
           sm, bars, lse + (size_t)bh * Tn, delta + (size_t)bh * Tn,
@@ -1869,7 +1984,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) flash_bwd_dkv_tc_kernel(
                                       : nullptr,
           OPT && op.qs ? op.qs + (size_t)b * Tn : nullptr,
           OPT && op.bias && part ? part + (size_t)bh * Tp * Tp : nullptr, kb0,
-          i_begin, i_end, Tn, Tp);
+          i_begin, i_last, Tn, Tp);
     }
   } else {
     if constexpr (NC > 1 && kPRegs > 0) regs_alloc<kCRegs>();
@@ -1900,13 +2015,15 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) flash_bwd_dkv_tc_kernel(
     const uint32_t v_base = k_base + Tc::kQ;
     const uint32_t ring0 = smem_addr(sm + Tc::kRing);
     // this consumer's tiles: a contiguous part of the block's (none when
-    // its keys start at or past T)
+    // its keys start at or past T), ending at its keys' documents; n_it is
+    // taken again after the loop (see above)
     int ic_begin, ic_end;
     query_range<BQ>(k0, 64, Tn, op.causal, op.window, &ic_begin, &ic_end);
+    if (OPT) ic_end = min(ic_end, doc_last[c] / BQ);
     if (k0 >= Tn) ic_begin = i_end + 1;
     const int it_begin = ic_begin - i_begin;
     const int it_end = min(ic_end, i_end) - i_begin;  // inclusive
-    const int n_it = i_end - i_begin + 1;
+    const int n_it = dkv_last_tile<BQ, NC, OPT>(doc_last, i_end) - i_begin + 1;
     for (int it = 0; it < min(it_begin, n_it); ++it) {
       ring.wait(it);
       ring.release(it);
@@ -1972,7 +2089,9 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) flash_bwd_dkv_tc_kernel(
       fence_acc<HD>(dv_acc);
       ring.release(it_end);
     }
-    for (int it = max(it_end + 1, it_begin); it < n_it; ++it) {
+    for (int it = max(it_end + 1, it_begin);
+         it < dkv_last_tile<BQ, NC, OPT>(doc_last, i_end) - i_begin + 1;
+         ++it) {
       ring.wait(it);
       ring.release(it);
     }
@@ -2179,7 +2298,7 @@ int dbias_rows(int Tn) { return (Tn + 63) / 64 * 64; }
 template <int HD, int BQ, int NC, int STAGES>
 int bwd_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv,
-               void* part, int B, int Tn, int H, Opts op,
+               void* part, void* tiles, int B, int Tn, int H, Opts op,
                cudaStream_t stream) {
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout))
     return static_cast<int>(cudaErrorMisalignedAddress);
@@ -2208,20 +2327,21 @@ int bwd_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
                    static_cast<const float*>(delta),
                    static_cast<__nv_bfloat16*>(dk),
                    static_cast<__nv_bfloat16*>(dv), static_cast<float*>(part),
-                   Tn, dbias_rows(Tn), H, op);
+                   static_cast<unsigned long long*>(tiles), Tn,
+                   dbias_rows(Tn), H, op);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int HD>
 int bwd_dkv_bf16(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* delta,
-                 void* dk, void* dv, void* part, int B, int Tn, int H,
-                 Opts op, cudaStream_t stream) {
+                 void* dk, void* dv, void* part, void* tiles, int B, int Tn,
+                 int H, Opts op, cudaStream_t stream) {
   constexpr bool k64 = HD == 64;
   return bwd_dkv_tc<HD, k64 ? kDkvQTile64 : kDkvQTile128,
                     k64 ? kDkvGroups64 : kDkvGroups128,
                     k64 ? kDkvStages64 : kDkvStages128>(
-      q, k, v, dout, lse, delta, dk, dv, part, B, Tn, H, op, stream);
+      q, k, v, dout, lse, delta, dk, dv, part, tiles, B, Tn, H, op, stream);
 }
 
 int dbias_reduce(const void* part, void* dbias, int B, int Tn, int H,
@@ -2237,10 +2357,11 @@ int dbias_reduce(const void* part, void* dbias, int B, int Tn, int H,
 template <int HD>
 int bwd_dkv_dbias_bf16(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
-                       void* dk, void* dv, void* dbias, void* part, int B,
-                       int Tn, int H, Opts op, cudaStream_t stream) {
-  if (int e = bwd_dkv_bf16<HD>(q, k, v, dout, lse, delta, dk, dv, part, B,
-                               Tn, H, op, stream))
+                       void* dk, void* dv, void* dbias, void* part,
+                       void* tiles, int B, int Tn, int H, Opts op,
+                       cudaStream_t stream) {
+  if (int e = bwd_dkv_bf16<HD>(q, k, v, dout, lse, delta, dk, dv, part,
+                               tiles, B, Tn, H, op, stream))
     return e;
   return dbias_reduce(part, dbias, B, Tn, H, op, stream);
 }
@@ -2249,8 +2370,9 @@ int bwd_dkv_dbias_bf16(const void* q, const void* k, const void* v,
 template <int HD>
 int bwd_dkv_dbias_simt(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
-                       void* dk, void* dv, void* dbias, void* part, int B,
-                       int Tn, int H, Opts op, cudaStream_t stream) {
+                       void* dk, void* dv, void* dbias, void* part,
+                       void* /* tiles */, int B, int Tn, int H, Opts op,
+                       cudaStream_t stream) {
   if (int e = bwd_dkv_simt<HD>(q, k, v, dout, lse, delta, dk, dv, B, Tn, H,
                                op, stream))
     return e;
@@ -2285,7 +2407,10 @@ extern "C" {
 // seed is the int32 dropout seed (its bits), rate the dropout rate (0 =
 // none).  Each returns the cudaError_t of its launch (0 on success).
 // K1, K2 and K3 run the tensor-core kernels on bfloat16 (whose q, k, v, do
-// must be 16-byte aligned) and the SIMT kernels on float32.
+// must be 16-byte aligned) and the SIMT kernels on float32.  K3's tiles,
+// a device int64[2] or null, gains with each bfloat16 launch on the
+// options' path the query tiles its blocks visit and those of the whole
+// causal range (see flash_bwd_dkv_tc_kernel).
 int nnl_flash_fwd(const void* q, const void* k, const void* v,
                   const void* bias, const void* kvm, const void* qs,
                   const void* sink, void* o, void* lse, int B, int Tn, int H,
@@ -2326,15 +2451,15 @@ int nnl_flash_bwd_dq(const void* q, const void* k, const void* v,
 int nnl_flash_bwd_dkv(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       const void* bias, const void* kvm, const void* qs,
-                      void* dk, void* dv, int B, int Tn, int H, int hd,
-                      float sm_scale, int causal, int window, float rate,
-                      int seed, int dtype, void* stream) {
+                      void* dk, void* dv, void* tiles, int B, int Tn, int H,
+                      int hd, float sm_scale, int causal, int window,
+                      float rate, int seed, int dtype, void* stream) {
   const Opts op =
       opts_of(bias, kvm, qs, nullptr, sm_scale, causal, window, rate, seed);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     NNL_FLASH_HD(bwd_dkv_bf16, hd, q, k, v, dout, lse, delta, dk, dv,
-                 nullptr, B, Tn, H, op, st);
+                 nullptr, tiles, B, Tn, H, op, st);
   }
   if (dtype == 0) {
     NNL_FLASH_HD(bwd_dkv_simt, hd, q, k, v, dout, lse, delta, dk, dv, B, Tn,
@@ -2352,10 +2477,10 @@ int nnl_flash_bwd_dkv_dbias(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, const void* bias,
                             const void* kvm, const void* qs, void* dk,
-                            void* dv, void* dbias, void* part, int B, int Tn,
-                            int H, int hd, float sm_scale, int causal,
-                            int window, float rate, int seed, int dtype,
-                            void* stream) {
+                            void* dv, void* dbias, void* part, void* tiles,
+                            int B, int Tn, int H, int hd, float sm_scale,
+                            int causal, int window, float rate, int seed,
+                            int dtype, void* stream) {
   if (bias == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const Opts op =
       opts_of(bias, kvm, qs, nullptr, sm_scale, causal, window, rate, seed);
@@ -2363,11 +2488,11 @@ int nnl_flash_bwd_dkv_dbias(const void* q, const void* k, const void* v,
   if (dtype == 1) {
     if (part == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     NNL_FLASH_HD(bwd_dkv_dbias_bf16, hd, q, k, v, dout, lse, delta, dk, dv,
-                 dbias, part, B, Tn, H, op, st);
+                 dbias, part, tiles, B, Tn, H, op, st);
   }
   if (dtype == 0) {
     NNL_FLASH_HD(bwd_dkv_dbias_simt, hd, q, k, v, dout, lse, delta, dk, dv,
-                 dbias, part, B, Tn, H, op, st);
+                 dbias, part, tiles, B, Tn, H, op, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -68,10 +68,10 @@ SIGNATURES = {
     "nnl_flash_fwd": ([_P] * 9 + _TAIL, _I),
     # q, k, v, do, lse, delta, bias, kvm, qs, dq
     "nnl_flash_bwd_dq": ([_P] * 10 + _TAIL, _I),
-    # q, k, v, do, lse, delta, bias, kvm, qs, dk, dv
-    "nnl_flash_bwd_dkv": ([_P] * 11 + _TAIL, _I),
-    # q, k, v, do, lse, delta, bias, kvm, qs, dk, dv, dbias, part
-    "nnl_flash_bwd_dkv_dbias": ([_P] * 13 + _TAIL, _I),
+    # q, k, v, do, lse, delta, bias, kvm, qs, dk, dv, tiles
+    "nnl_flash_bwd_dkv": ([_P] * 12 + _TAIL, _I),
+    # q, k, v, do, lse, delta, bias, kvm, qs, dk, dv, dbias, part, tiles
+    "nnl_flash_bwd_dkv_dbias": ([_P] * 14 + _TAIL, _I),
     # seeds, n_seeds, n_bh, n_q, n_k, q0, k0, rate, out, stream
     "nnl_flash_drop_keep": ([_P] + [_I] * 6 + [_F, _P, _P], _I),
     "nnl_flash_error_string": ([_I], ctypes.c_char_p),
@@ -349,16 +349,47 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, sm_scale, window=0, dropout=0.0,
                   seed=0, *, causal=True, bias=None, kvm=None, qs=None):
     """K3: (dk, dv), with the same inputs as :func:`flash_bwd_dq`.
     ``flash_bwd_dkv.launches`` counts K3's launches, those of
-    :func:`flash_bwd_dkv_dbias` included."""
+    :func:`flash_bwd_dkv_dbias` included.  On packed rows (``qs``) the
+    bf16 kernel ends each key block's query tiles at its keys' documents;
+    :func:`query_tiles` counts them while tracing is on."""
     ptrs = _bwd_inputs(q, k, v, do, lse, delta)
     args = _shape_args(q, sm_scale, causal, window, dropout, seed)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         _run("nnl_flash_bwd_dkv", *ptrs,
              *_option_ptrs(q, bias, kvm, qs), dk.data_ptr(), dv.data_ptr(),
-             *args)
+             _tile_counter(q.device), *args)
     flash_bwd_dkv.launches += 1
     return dk, dv
+
+
+_tiles = [None]     # K3's query tiles, summed while tracing is on
+
+
+def _tile_counter(device):
+    """The pointer of K3's device int64[2] tile count while tracing is
+    on, else None."""
+    if not tracing.enabled():
+        return None
+    t = _tiles[0]
+    if t is None or t.device != device:
+        t = _tiles[0] = torch.zeros(2, dtype=torch.int64, device=device)
+    return t.data_ptr()
+
+
+def query_tiles():
+    """(visited, causal): the query tiles that K3's bf16 launches on the
+    options' path made while tracing was on visited, and those of the
+    whole causal range, summed over their key blocks.  Copies of the
+    device's counts (0 before any), so reading them waits for nothing;
+    ``tracing.snapshot`` makes them numbers after the caller's
+    synchronize.  The two are equal where no block's range ends at its
+    documents: one document a row, or the bias gradient's dS scratch."""
+    t = _tiles[0]
+    if t is None:
+        return 0, 0
+    t = t.clone()
+    return t[0], t[1]
 
 
 def dbias_rows(T: int) -> int:
@@ -376,7 +407,8 @@ def flash_bwd_dkv_dbias(q, k, v, do, lse, delta, sm_scale, window=0,
 
     bfloat16: K3's pass on the tensor cores also writes each batch row's dS
     (float32) into a (B*H, Tp, Tp) scratch (Tp = :func:`dbias_rows`), and a
-    second kernel sums it over the batch in a fixed order; float32: the
+    second kernel sums it over the batch in a fixed order (so this pass
+    visits the whole causal range, packed rows too); float32: the
     SIMT K3, then the SIMT K4.  Each call counts one launch in
     ``flash_bwd_dkv.launches`` (K3) and one in ``flash_bwd_dbias.launches``
     (the batch sum, or the SIMT K4).  On CPU tensors it runs
@@ -400,7 +432,7 @@ def flash_bwd_dkv_dbias(q, k, v, do, lse, delta, sm_scale, window=0,
         _run("nnl_flash_bwd_dkv_dbias", *ptrs,
              *_option_ptrs(q, bias, kvm, qs), dk.data_ptr(), dv.data_ptr(),
              dbias.data_ptr(), None if part is None else part.data_ptr(),
-             *args)
+             _tile_counter(q.device), *args)
     flash_bwd_dkv.launches += 1
     flash_bwd_dbias.launches += 1
     return dk, dv, dbias

@@ -28,8 +28,9 @@ of its nearest device-span ancestor.  :func:`counters` reads the port's
 launch counters where they live (the kernels' own ``.launches``
 attributes, and the padded head product's and the expert layers' calls,
 which count whether tracing is on or off, and the expert layers' held
-assignments, counted on the device only while tracing is on); a step span
-records them at its entry and exit.
+assignments and the dk/dv kernel's query tiles, counted on the device
+only while tracing is on); a step span records them at its entry and
+exit.
 
 Usage::
 
@@ -200,10 +201,12 @@ def mark(name: str) -> None:
 
 def counters() -> dict:
     """Every launch counter of the port, by ``<kernel>.launches``; the
-    elements the fused Adam kernel updated (``adam.elements``); and the
-    expert layers' held assignments (``moe_experts.assignments``), which
-    are counted on the device while tracing is on: a device copy here, a
-    number in :func:`snapshot`."""
+    elements the fused Adam kernel updated (``adam.elements``); the
+    expert layers' held assignments (``moe_experts.assignments``); and
+    the query tiles K3 visited and those of the whole causal range
+    (``flash_bwd_dkv.query_tiles``, ``.causal_query_tiles``).  The last
+    three are counted on the device while tracing is on: device copies
+    here, numbers in :func:`snapshot`."""
     from neuralnetworklibrary_tpu_torch.ops import (
         adam,
         flash_attention,
@@ -221,6 +224,8 @@ def counters() -> dict:
     out = {f"{fn.__name__}.launches": fn.launches for fn in fns}
     out["adam.elements"] = adam.adam.elements
     out["moe_experts.assignments"] = moe.assignments()
+    (out["flash_bwd_dkv.query_tiles"],
+     out["flash_bwd_dkv.causal_query_tiles"]) = flash_attention.query_tiles()
     return out
 
 

@@ -217,7 +217,8 @@ def test_the_flash_backward_span_and_counters(fake_kernels):
         "flash_bwd_dkv.launches", "flash_bwd_dbias.launches",
         "lstm_fwd.launches", "lstm_bwd.launches", "paged_attention.launches",
         "padded_head.launches", "moe_experts.launches",
-        "moe_experts.assignments", "adam.launches", "adam.elements"}
+        "moe_experts.assignments", "adam.launches", "adam.elements",
+        "flash_bwd_dkv.query_tiles", "flash_bwd_dkv.causal_query_tiles"}
     from neuralnetworklibrary_tpu_torch.ops import lstm_scan, paged_attention
 
     assert counters["flash_bwd_dkv.launches"] == fa.flash_bwd_dkv.launches
