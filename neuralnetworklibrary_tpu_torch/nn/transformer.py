@@ -633,10 +633,18 @@ class TransformerLM(nn.Module):
 
     ``head_dim`` (0: d_model // n_heads), ``qk_norm``, ``rope_base``,
     ``rope_scaling`` (a :func:`rope_scaling_tuple`) and ``rotary_dim`` go
-    to every attention.  ``reset_at`` (a separator token id) packs several
-    documents into a row: a segment starts right after each separator and
-    positions restart there; both are derived on the device from the
-    tokens (JAX transformer.py:1435-1446), and decode ignores them.
+    to every attention.  ``window_pattern`` (the JAX package's: one int a
+    layer, 0 = full attention) overrides ``window`` layer by layer, as
+    models that interleave sliding-window and full layers (HF
+    ``layer_types``) ask.  ``rope_pattern`` gives layer i its own rotary
+    phases: one entry a layer, each None (the model's ``rope_base`` and
+    ``rope_scaling``) or a (base, scaling) pair, scaling a
+    :func:`rope_scaling_tuple` or None (HF ``rope_parameters`` by layer
+    type, e.g. YaRN on the full layers only).  ``reset_at`` (a separator
+    token id) packs several documents into a row: a segment starts right
+    after each separator and positions restart there; both are derived on
+    the device from the tokens (JAX transformer.py:1435-1446), and decode
+    ignores them.
     ``remat`` recomputes each block in the backward
     (``torch.utils.checkpoint``, non-reentrant; each block's flash
     dropout seed is drawn once, before the block, so the recompute
@@ -670,7 +678,7 @@ class TransformerLM(nn.Module):
     under expert parallelism, whose output is that share's part.
 
     Not ported yet, each raising ``NotImplementedError`` when set (ROADMAP
-    Queue 1): ``embed_scale``, ``window_pattern``, ``attn_softcap``,
+    Queue 1): ``embed_scale``, ``attn_softcap``,
     ``logit_softcap``, ``att_scale``, ``post_norm``, ``parallel_block``,
     ``head_bias``, ``capacity_factor`` (the JAX package's GShard routing,
     which drops a token past an expert's capacity), ``lora_rank``,
@@ -691,7 +699,8 @@ class TransformerLM(nn.Module):
                  tied_decoder: bool = True, remat: bool = False,
                  fused_ce: bool = False, reset_at: Optional[int] = None,
                  embed_scale: float = 0.0, window_pattern=None,
-                 attn_softcap: float = 0.0, logit_softcap: float = 0.0,
+                 rope_pattern=None, attn_softcap: float = 0.0,
+                 logit_softcap: float = 0.0,
                  att_scale: float = 0.0, post_norm: bool = False,
                  parallel_block: bool = False, head_bias: bool = False,
                  n_experts: int = 0, moe_top_k: int = 2, moe_every: int = 2,
@@ -710,7 +719,6 @@ class TransformerLM(nn.Module):
                 f"TransformerLM(n_experts=..., mlp={mlp!r}): experts are "
                 f"SwiGLU only in the port {_TODO}")
         for name, asked in (("embed_scale", embed_scale),
-                            ("window_pattern", window_pattern is not None),
                             ("attn_softcap", attn_softcap),
                             ("logit_softcap", logit_softcap),
                             ("att_scale", att_scale),
@@ -726,6 +734,13 @@ class TransformerLM(nn.Module):
         if norm not in ("layernorm", "rmsnorm"):
             raise ValueError(
                 f"norm must be 'layernorm' or 'rmsnorm', got {norm!r}")
+        for name, pattern in (("window_pattern", window_pattern),
+                              ("rope_pattern", rope_pattern)):
+            if pattern is not None and len(pattern) != n_layers:
+                raise ValueError(f"{name} needs one entry per layer "
+                                 f"({n_layers}), got {len(pattern)}")
+        if rope_pattern is not None and pos_embedding != "rope":
+            raise ValueError("rope_pattern needs pos_embedding='rope'")
         if pos_embedding not in ("learned", "rope"):
             raise ValueError(f"pos_embedding must be 'learned' or 'rope', "
                              f"got {pos_embedding!r}")
@@ -748,6 +763,12 @@ class TransformerLM(nn.Module):
         self.fused_ce, self.reset_at = fused_ce, reset_at
         self.n_experts, self.moe_top_k = n_experts, moe_top_k
         self.moe_every, self.moe_experts = moe_every, moe_experts
+        self.window_pattern = (tuple(int(w) for w in window_pattern)
+                               if window_pattern is not None
+                               else (window,) * n_layers)
+        ropes = [(rope_base, rope_scaling) if r is None
+                 else (float(r[0]), r[1])
+                 for r in rope_pattern or (None,) * n_layers]
         self.word_embed = nn.Parameter(
             torch.empty(vocab_size, d_model, device=dev).normal_(0, 0.02))
         self.pos_embed = (nn.Parameter(
@@ -756,12 +777,12 @@ class TransformerLM(nn.Module):
         for i in range(n_layers):
             self.add_module(f"block_{i}", TransformerBlock(
                 d_model, n_heads, d_ff=d_ff, drop=drop,
-                n_kv_heads=n_kv_heads, window=window, sinks=sinks,
-                rms_norm=norm == "rmsnorm", norm_eps=norm_eps,
+                n_kv_heads=n_kv_heads, window=self.window_pattern[i],
+                sinks=sinks, rms_norm=norm == "rmsnorm", norm_eps=norm_eps,
                 act="gelu" if mlp == "geglu" else None,
                 gated=mlp != "gelu", head_dim=self.head_dim,
                 qk_norm=qk_norm, use_rope=pos_embedding == "rope",
-                rope_base=rope_base, rope_scaling=rope_scaling,
+                rope_base=ropes[i][0], rope_scaling=ropes[i][1],
                 rotary_dim=rotary_dim,
                 n_experts=(n_experts if n_experts
                            and (i + 1) % max(1, moe_every) == 0 else 0),

@@ -485,7 +485,9 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        with tracing.span("attention.bwd"):
+        kind = "sliding" if ctx.args[1] > 0 else "full"
+        with tracing.span(f"attention.{kind}.bwd", device=True,
+                          shares=False), tracing.span("attention.bwd"):
             q, k, v, o, lse, bias, kvm, qs, sink = ctx.saved_tensors
             do = do.to(q.dtype).contiguous()
             B, T, H, _ = q.shape
@@ -529,7 +531,84 @@ def flash_attention(q, k, v, sm_scale=None, window: int = 0,
     (any values; ``arange(T) - positions`` for contiguous documents).  T
     is any length.  On CUDA tensors the kernels take float32 or bfloat16
     and head dims 64 and 128 (another raises ValueError).
+
+    While tracing is on, the call is the device span ``attention.sliding``
+    (a window) or ``attention.full`` (none), its backward
+    ``attention.sliding.bwd`` or ``attention.full.bwd``, and its attended
+    pairs join that kind's count (:func:`attended_pairs`).
     """
+    kind = "sliding" if window > 0 else "full"
+    with tracing.span("attention." + kind, device=True, shares=False):
+        out = _attention(q, k, v, sm_scale, window, causal, dropout,
+                         dropout_seed, bias, sink, kv_mask, q_start)
+    if tracing.enabled():
+        _count_pairs(kind, q.shape[0], q.shape[1], window, causal, q_start)
+    return out
+
+
+_pairs: dict = {}     # kind -> [device count or None, host count]
+_pending: list = []   # (kind, window, q_start) of calls not summed yet
+_PENDING_MAX = 256
+
+
+def _count_pairs(kind, B, T, window, causal, q_start):
+    """Add the call's attended (query, key) pairs of one head, by position,
+    window and document start (a key mask not counted), to ``kind``'s
+    count: causal query t sees keys max(0, t - window + 1, q_start[b, t])
+    .. t, a bidirectional one all T.  What the shapes fix is counted on
+    the host now; document starts are kept and summed on the device by
+    :func:`attended_pairs`, a few ops for all the calls since its last
+    read, so a call adds no device work and little host work."""
+    count = _pairs.setdefault(kind, [None, 0])
+    w = window if 0 < window < T else T
+    if not causal:
+        count[1] += B * T * T
+    elif q_start is None:     # sum over t of min(t + 1, w)
+        count[1] += B * (w * (w + 1) // 2 + (T - w) * w)
+    else:
+        count[1] += B * T
+        _pending.append((kind, w, q_start))
+        if len(_pending) > _PENDING_MAX:
+            _sum_pending()
+
+
+def _sum_pending():
+    """Sum the kept calls' document-start pairs on their device: query t
+    adds clamp(t - max(q_start, 0), -1, w - 1) (the host holds the + 1)."""
+    groups: dict = {}
+    for kind, w, qs in _pending:
+        T = qs.shape[-1]
+        groups.setdefault((kind, w, T, qs.device), []).append(
+            qs.reshape(-1, T))
+    _pending.clear()
+    for (kind, w, T, device), parts in groups.items():
+        qs = torch.cat(parts) if len(parts) > 1 else parts[0]
+        pos = torch.arange(T, device=device)
+        n = (pos - qs.clamp(min=0)).clamp_(-1, w - 1).sum()
+        count = _pairs[kind]
+        if count[0] is None or count[0].device != device:
+            count[0] = torch.zeros((), dtype=torch.int64, device=device)
+        count[0].add_(n)
+
+
+def attended_pairs() -> dict:
+    """{"sliding": n, "full": n}: the (query, key) pairs of one head that
+    the calls with a window and those without one attended while tracing
+    was on, summed over the batch and the calls (a forward and its
+    backward count once).  Device copies where document starts were
+    counted (0 before any call), so reading them waits for nothing;
+    ``tracing.snapshot`` makes them numbers after the caller's
+    synchronize."""
+    _sum_pending()
+    out = {}
+    for kind in ("sliding", "full"):
+        dev, host = _pairs.get(kind, (None, 0))
+        out[kind] = host if dev is None else dev + host
+    return out
+
+
+def _attention(q, k, v, sm_scale, window, causal, dropout, dropout_seed,
+               bias, sink, kv_mask, q_start):
     with tracing.span("attention.fwd"):
         B, T, H, hd = q.shape
         if k.shape != q.shape or v.shape != q.shape:

@@ -25,6 +25,12 @@ and of the held experts ``e`` (all, or ``experts`` = (first, last))
 transposed into ``w1``, ``w3`` (E, D, F) and ``w2`` (E, F, D), with zero
 biases ``b1``, ``b3``, ``b2`` (the JAX ``MoEMLP`` layout).
 
+Mellum (``model_type`` 'mellum', :func:`load_config` and
+:func:`load_llama_dir`) is Qwen3-MoE's layout with each layer's attention
+named by ``layer_types`` (sliding-window or full) and rotary phases given
+by layer type (``rope_parameters``): the model's ``window_pattern`` and
+``rope_pattern``.
+
 Not ported yet (ROADMAP Queue 1): the Mixtral, Gemma, Gemma2, GPT-OSS,
 Phi-2 and Phi-3 converters.
 """
@@ -223,13 +229,16 @@ def load_qwen3_moe(state_dict, n_layers: int, n_heads: int, d_model: int,
 
 
 def _moe_config(cfg) -> dict:
-    """load_qwen3_moe's expert arguments from a Qwen3-MoE config: every
-    layer an expert layer, weights renormalised over the top k."""
+    """load_qwen3_moe's expert arguments from a Qwen3-MoE or Mellum config:
+    every layer an expert layer, weights renormalised over the top k."""
     if (cfg.get("decoder_sparse_step", 1) != 1
-            or cfg.get("mlp_only_layers")):
+            or cfg.get("mlp_only_layers")
+            or any(t != "sparse" for t in cfg.get("mlp_layer_types", ()))):
         raise NotImplementedError(
-            "load_llama_dir: Qwen3-MoE with dense layers (decoder_sparse_step"
-            " != 1 or mlp_only_layers) is not ported yet (ROADMAP Queue 1)")
+            "load_llama_dir: expert models with dense layers "
+            "(decoder_sparse_step != 1, mlp_only_layers, or a mlp_layer_types"
+            " entry that is not 'sparse') are not ported yet (ROADMAP "
+            "Queue 1)")
     if not cfg.get("norm_topk_prob", False):
         raise NotImplementedError(
             "load_llama_dir: Qwen3-MoE without norm_topk_prob is not ported "
@@ -239,25 +248,41 @@ def _moe_config(cfg) -> dict:
                 d_ff=cfg["moe_intermediate_size"])
 
 
-def load_llama_dir(path: str, max_len: int = 0, **model_kw):
-    """(model, params) of an HF snapshot directory (``config.json`` and
-    ``.safetensors``, one file or index-sharded) of ``model_type``
-    'llama', 'qwen3' or 'qwen3_moe' (every layer an expert layer, the
-    top-k weights renormalised; ``moe_experts=`` picks the held
-    experts), read by ``utils.safetensors_io``.  ``max_len``
-    defaults to the config's max_position_embeddings; ``rope_scaling``,
-    ``partial_rotary_factor`` and a sliding window (where
-    ``use_sliding_window`` is not False) are read from the config;
-    ``model_kw`` goes to TransformerLM.  Other model types raise
-    NotImplementedError."""
-    with open(os.path.join(path, "config.json")) as f:
-        cfg = json.load(f)
+def _layer_types(cfg, hd: int) -> dict:
+    """``window_pattern`` of a config that names each layer's attention
+    (``layer_types``: 'sliding_attention' sees the last ``sliding_window``
+    keys, 'full_attention' all) and, where its ``rope_parameters`` are
+    given by layer type (Mellum: YaRN on the full layers only), the
+    ``rope_pattern`` of each layer's own rotary phases."""
+    kinds = cfg["layer_types"][:cfg["num_hidden_layers"]]
+    windows = {"sliding_attention": int(cfg.get("sliding_window") or 0),
+               "full_attention": 0}
+    odd = sorted(set(kinds) - set(windows))
+    if odd:
+        raise NotImplementedError(
+            f"load_llama_dir: layer_types {odd} are not ported yet (ROADMAP "
+            f"Queue 1)")
+    out = {"window_pattern": tuple(windows[k] for k in kinds)}
+    by_type = cfg.get("rope_parameters") or {}
+    if set(kinds) <= set(by_type):
+        max_pos = int(cfg["max_position_embeddings"])
+        ropes = {k: (float(r["rope_theta"]), rope_scaling_tuple(
+            r, hd, float(r["rope_theta"]), max_pos))
+            for k, r in by_type.items()}
+        out["rope_pattern"] = tuple(ropes[k] for k in kinds)
+    return out
+
+
+def load_config(cfg: dict, state_dict, max_len: int = 0, **model_kw):
+    """(model, params) of an HF ``config.json``'s dict and a state dict of
+    its weights (numpy arrays or tensors), as :func:`load_llama_dir`
+    builds them."""
     mt = cfg.get("model_type")
-    if mt not in ("llama", "qwen3", "qwen3_moe"):
+    if mt not in ("llama", "qwen3", "qwen3_moe", "mellum"):
         raise NotImplementedError(
             f"load_llama_dir: model_type {mt!r} is not ported yet (ROADMAP "
-            f"Queue 1); 'llama', 'qwen3' and 'qwen3_moe' are")
-    moe = _moe_config(cfg) if mt == "qwen3_moe" else None
+            f"Queue 1); 'llama', 'qwen3', 'qwen3_moe' and 'mellum' are")
+    moe = _moe_config(cfg) if mt in ("qwen3_moe", "mellum") else None
     hd = cfg.get("head_dim") or (cfg["hidden_size"]
                                  // cfg["num_attention_heads"])
     prf = float(cfg.get("partial_rotary_factor", 1.0))
@@ -282,17 +307,36 @@ def load_llama_dir(path: str, max_len: int = 0, **model_kw):
             original_max=int(
                 cfg.get("original_max_position_embeddings", 0)))
     window = int(cfg.get("sliding_window") or 0)
-    if cfg.get("use_sliding_window") is False:
-        window = 0
-    if window:
+    if "layer_types" in cfg:
+        model_kw.update(_layer_types(cfg, hd))
+    elif window and cfg.get("use_sliding_window") is not False:
         model_kw.setdefault("window", window)
-    sd = load_safetensors_auto(path)
     if mt != "llama":
         common["rope_base"] = float(cfg.get("rope_theta", 1000000.0))
         common["norm_eps"] = float(cfg.get("rms_norm_eps", 1e-6))
     if moe is not None:
-        return load_qwen3_moe(sd, head_dim=hd, **dict(common, **moe),
-                              **model_kw)
+        return load_qwen3_moe(state_dict, head_dim=hd,
+                              **dict(common, **moe), **model_kw)
     if mt == "qwen3":
-        return load_qwen3(sd, head_dim=hd, **common, **model_kw)
-    return load_llama(sd, **common, **model_kw)
+        return load_qwen3(state_dict, head_dim=hd, **common, **model_kw)
+    return load_llama(state_dict, **common, **model_kw)
+
+
+def load_llama_dir(path: str, max_len: int = 0, **model_kw):
+    """(model, params) of an HF snapshot directory (``config.json`` and
+    ``.safetensors``, one file or index-sharded) of ``model_type``
+    'llama', 'qwen3', 'qwen3_moe' or 'mellum' (the two expert models with
+    every layer an expert layer, the top-k weights renormalised;
+    ``moe_experts=`` picks the held experts), read by
+    ``utils.safetensors_io``.  ``max_len`` defaults to the config's
+    max_position_embeddings; ``rope_scaling``, ``partial_rotary_factor``
+    and a sliding window (where ``use_sliding_window`` is not False) are
+    read from the config, or, where it has ``layer_types`` (Mellum), each
+    layer's window and rotary phases (``window_pattern``,
+    ``rope_pattern``); ``model_kw`` goes to TransformerLM.  Other model
+    types, and expert models with dense layers, raise
+    NotImplementedError.  Mellum's weights carry Qwen3-MoE's names, q/k
+    norms included."""
+    with open(os.path.join(path, "config.json")) as f:
+        cfg = json.load(f)
+    return load_config(cfg, load_safetensors_auto(path), max_len, **model_kw)

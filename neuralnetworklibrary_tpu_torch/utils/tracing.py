@@ -20,17 +20,18 @@ enters no profiler range and records no CUDA event.  On, a span records
   device's kernels;
 - with ``device=True``, a CUDA event on the current stream at entry and
   at exit (a device span that opens right where another closed, with no
-  span boundary between, shares its event), read as device milliseconds
-  by :func:`snapshot`.
+  span boundary between, shares its event, unless either was opened with
+  ``shares=False``: a span around part of a layer, whose neighbours'
+  work no span holds), read as device milliseconds by :func:`snapshot`.
 
 :func:`mark` records a point: its device time is measured from the start
 of its nearest device-span ancestor.  :func:`counters` reads the port's
 launch counters where they live (the kernels' own ``.launches``
 attributes, and the padded head product's and the expert layers' calls,
 which count whether tracing is on or off, and the expert layers' held
-assignments and the dk/dv kernel's query tiles, counted on the device
-only while tracing is on); a step span records them at its entry and
-exit.
+assignments, the dk/dv kernel's query tiles and the attention calls'
+attended pairs, counted on the device only while tracing is on); a step
+span records them at its entry and exit.
 
 Usage::
 
@@ -115,31 +116,33 @@ def _parent(stack):
     return None
 
 
-def _boundary(device: bool, entry: bool = False):
+def _boundary(device: bool, entry: bool = False, shares: bool = True):
     """The CUDA event of a device span's boundary (None off CUDA): at an
     entry, the event of the device span that just closed where no other
     boundary came between; at an exit, a new one.  Any other boundary
-    (None) ends that sharing."""
+    (None), and a span that ``shares`` nothing, ends that sharing."""
     global _last
     if not (device and torch.cuda.is_initialized()):
         _last = None
         return None
     stream = torch.cuda.current_stream()
-    if entry and _last is not None and _last[1] == stream:
+    if entry and shares and _last is not None and _last[1] == stream:
         event = _last[0]
     else:
         event = torch.cuda.Event(enable_timing=True)
         event.record(stream)
-    _last = None if entry else (event, stream)
+    _last = None if entry or not shares else (event, stream)
     return event
 
 
 class _Span:
     __slots__ = ("name", "id", "parent", "thread", "step", "begins",
-                 "device", "start_ns", "end_ns", "e0", "e1", "data", "_rf")
+                 "device", "shares", "start_ns", "end_ns", "e0", "e1",
+                 "data", "_rf")
 
-    def __init__(self, name, device, begins):
+    def __init__(self, name, device, begins, shares=True):
         self.name, self.device, self.begins = name, device, begins
+        self.shares = shares
         self.data = {}
 
     def __enter__(self):
@@ -155,7 +158,7 @@ class _Span:
         if _profiler._is_profiler_enabled:     # a range only a profiler sees
             self._rf = _profiler.record_function("nnl/" + self.name)
             self._rf.__enter__()
-        self.e0 = _boundary(self.device, entry=True)
+        self.e0 = _boundary(self.device, entry=True, shares=self.shares)
         self.start_ns = time.perf_counter_ns()
         stack.append(self)
         return self
@@ -163,7 +166,7 @@ class _Span:
     def __exit__(self, *exc):
         global _step
         self.end_ns = time.perf_counter_ns()
-        self.e1 = _boundary(self.device)
+        self.e1 = _boundary(self.device, shares=self.shares)
         if self._rf is not None:
             self._rf.__exit__(*exc)
             self._rf = None
@@ -175,14 +178,15 @@ class _Span:
         return False
 
 
-def span(name: str, device: bool = False, step=None):
+def span(name: str, device: bool = False, step=None, shares: bool = True):
     """A context manager around one layer's work (see the module's doc).
-    ``step`` (an int) makes it the span of that step.  Entered, it gives
-    the span, whose ``data`` dict :func:`snapshot` carries into its
-    record, or None while tracing is off."""
+    ``step`` (an int) makes it the span of that step; ``shares=False``
+    keeps a device span's events its own.  Entered, it gives the span,
+    whose ``data`` dict :func:`snapshot` carries into its record, or None
+    while tracing is off."""
     if not (_on or _profiler._is_profiler_enabled):
         return _NULL
-    return _Span(name, device, step)
+    return _Span(name, device, step, shares)
 
 
 def mark(name: str) -> None:
@@ -202,11 +206,14 @@ def mark(name: str) -> None:
 def counters() -> dict:
     """Every launch counter of the port, by ``<kernel>.launches``; the
     elements the fused Adam kernel updated (``adam.elements``); the
-    expert layers' held assignments (``moe_experts.assignments``); and
-    the query tiles K3 visited and those of the whole causal range
-    (``flash_bwd_dkv.query_tiles``, ``.causal_query_tiles``).  The last
-    three are counted on the device while tracing is on: device copies
-    here, numbers in :func:`snapshot`."""
+    expert layers' held assignments (``moe_experts.assignments``); the
+    query tiles K3 visited and those of the whole causal range
+    (``flash_bwd_dkv.query_tiles``, ``.causal_query_tiles``); and the
+    (query, key) pairs of one head that the flash calls with a window
+    and those without one attended (``attention.sliding_pairs``,
+    ``attention.full_pairs``).  The last five are counted only while
+    tracing is on, on the device (the pairs partly on the host): device
+    copies here, numbers in :func:`snapshot`."""
     from neuralnetworklibrary_tpu_torch.ops import (
         adam,
         flash_attention,
@@ -226,6 +233,8 @@ def counters() -> dict:
     out["moe_experts.assignments"] = moe.assignments()
     (out["flash_bwd_dkv.query_tiles"],
      out["flash_bwd_dkv.causal_query_tiles"]) = flash_attention.query_tiles()
+    for kind, n in flash_attention.attended_pairs().items():
+        out[f"attention.{kind}_pairs"] = n
     return out
 
 

@@ -1,0 +1,13 @@
+"""flash_full_roofline.train: the full attention layers' least time
+over their measured time, in percent, over the traced slice.  The least
+time is ``roofline.attention_least_seconds`` of each such layer's call
+over the attended pairs the port counts on the device
+(``attention.full_pairs``); the measured time is that of
+``attn_full_ms_per_step.train``'s spans.  A port without that counter
+reads nothing."""
+
+from portbench import attention_kinds
+
+
+def read(ctx):
+    return attention_kinds.roofline_share(ctx, "full")

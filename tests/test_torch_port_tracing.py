@@ -190,8 +190,10 @@ def test_a_packed_lm_step_gives_the_layer_tree_and_the_same_numbers():
     assert tree == sorted([
         ("", "loader.next"), ("", "learner.step"),
         ("learner.step", "learner.h2d"), ("learner.step", "learner.forward"),
-        ("learner.forward", "attention.fwd"),
-        ("learner.forward", "attention.fwd"),
+        ("learner.forward", "attention.full"),
+        ("learner.forward", "attention.full"),
+        ("attention.full", "attention.fwd"),
+        ("attention.full", "attention.fwd"),
         ("learner.forward", "lm.head"), ("learner.step", "learner.loss"),
         ("learner.step", "learner.backward"),
         ("learner.backward", "lm.head.grad"),
@@ -208,7 +210,9 @@ def test_the_flash_backward_span_and_counters(fake_kernels):
         _flash_step()
     spans = {s["name"]: s for s in tracing.snapshot()["spans"]}
     step = spans["learner.step"]
-    assert spans["attention.bwd"]["parent"] == step["id"]
+    assert spans["attention.full.bwd"]["parent"] == step["id"]
+    assert spans["attention.bwd"]["parent"] == spans["attention.full.bwd"][
+        "id"]
     assert [step["counters_out"][k] - step["counters_in"][k]
             for k in FLASH] == [1, 1, 1]
     counters = tracing.counters()
@@ -218,7 +222,8 @@ def test_the_flash_backward_span_and_counters(fake_kernels):
         "lstm_fwd.launches", "lstm_bwd.launches", "paged_attention.launches",
         "padded_head.launches", "moe_experts.launches",
         "moe_experts.assignments", "adam.launches", "adam.elements",
-        "flash_bwd_dkv.query_tiles", "flash_bwd_dkv.causal_query_tiles"}
+        "flash_bwd_dkv.query_tiles", "flash_bwd_dkv.causal_query_tiles",
+        "attention.sliding_pairs", "attention.full_pairs"}
     from neuralnetworklibrary_tpu_torch.ops import lstm_scan, paged_attention
 
     assert counters["flash_bwd_dkv.launches"] == fa.flash_bwd_dkv.launches
