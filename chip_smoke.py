@@ -39,6 +39,18 @@ name and power limit from nvidia-smi):
           Every training phase below runs with the kernel's counters from
           0 and a tally of the elements Optimizer.apply trains on the
           card: each must send every such element through the kernel.
+- cross_entropy: the cross-entropy kernels (ops.cross_entropy, forward
+          and backward through the autograd Function) against the plain
+          passes of the same module on the same card inputs, at the
+          stream cell's padded GPT-2 logits (65,536 x 50,257 in rows
+          50,304 apart) and the Qwen3 cells' (16,384 x 151,936), bf16 and
+          float32, with an upstream gradient of 3.7 / N a row: each nll
+          within 2e-6 relative, the gradient within one bf16 ulp (float32:
+          2e-5 relative), plus 2e-6 of the row's upstream gradient at its
+          target; then at both shapes in bf16 the kernels, the plain
+          passes and PyTorch's float32 chain (cast, F.cross_entropy, its
+          backward, the cast back; a yardstick the port no longer calls)
+          timed against 3 N V 2 bytes over HBM bandwidth.
 - serve:  GPT-2-124M at full width (random weights from --seed, loaded
           through load_jax_params): (a) one f32 paged decode step, kernel
           path against gather path; (b) bf16 PagedServingEngine over 16
@@ -48,8 +60,10 @@ name and power limit from nvidia-smi):
           flash path against the einsum path; (b) the bench.py
           configuration (bf16, B 8, T 1024, Adam2, lr 1e-4, wd 1e-6, drop 0),
           10 train1minibatch steps on one fixed batch, then one evaluate.
-          Flash kernel launches, and the padded head's products (one a
-          step and one an eval batch), are counted over (b).
+          Flash kernel launches, the padded head's products (one a step
+          and one an eval batch) and the cross-entropy kernels' launches
+          (a forward and a backward a step, a forward an eval batch) are
+          counted over (b).
 - auto_flash: the models' auto rule: the default TransformerLM (hd 32)
           trains a bf16 step through the Learner on the einsum path (no
           flash launch), at hd 64 on the flash path, and so do a
@@ -74,8 +88,10 @@ name and power limit from nvidia-smi):
           B 64 on each path; (b) Adam2, lr 1e-3, wd
           1e-6, RegSeqCrossEntropyLoss(2, 1), default drops: 10
           train1minibatch steps on the loader's first window, then
-          evaluate('val') with LanguageModelAccuracy; K6/K7 launches are
-          counted over (b); (c) predict_from_string, k 1, 16 new tokens,
+          evaluate('val') with LanguageModelAccuracy; K6/K7 launches and
+          the float32 cross-entropy kernels' (a forward and a backward a
+          step, a forward an eval batch) are counted over (b); (c)
+          predict_from_string, k 1, 16 new tokens,
           with its K6 launches counted.
 - kernel: the flash kernels' options and the dbias kernel: K1-K4 over
           float32 and bf16, hd 64 and 128, causal and bidirectional, with
@@ -179,9 +195,11 @@ name and power limit from nvidia-smi):
           x T 4096, Adam2, PackedSeqCrossEntropyLoss, through the Learner
           over ArrayDataset / DataLoader: 10 steps on successive batches,
           evaluate over 2, exact K1-K3 launches (28 a forward, 28 a
-          backward), tokens/s and non-pad tokens/s, peak memory; (c)
+          backward) and cross-entropy launches (2 a step, 1 an eval
+          batch), tokens/s and non-pad tokens/s, peak memory; (c)
           fused_ce=True: the chunked CE against the materialised one on a
-          batch, then 3 steps with FusedSeqCrossEntropyLoss and their peak.
+          batch, then 3 steps with FusedSeqCrossEntropyLoss and their peak
+          (no cross-entropy kernel launched).
 - timing: each call's device time by CUDA events, with the L2 flushed
           and the card held by a spin kernel while the host enqueues the
           call (Timer); the median and the spread (min, max) of the reps.
@@ -287,6 +305,28 @@ ADAM_DESIGN = ("multi-tensor, one pass: a table of <= 80 tensors by value "
 ADAM_TOL = (1e-5, 1e-7)
 # Adam2 at the cells' lr 3e-4 and wd 0.1, a step count of 3
 ADAM_STEP = dict(lr=3e-4, wd=0.1, b1=0.9, b2=0.99, t=3, eps=1e-8)
+CE_SOURCE = "neuralnetworklibrary_tpu_torch/csrc/cross_entropy.cu"
+CE_REPLACES = ("no TPU kernel: XLA fuses the JAX package's LM losses' "
+               "log-softmax, target gather and their backward "
+               "(neuralnetworklibrary_tpu/core/metrics.py:60)")
+CE_DESIGN = ("two passes: ce_fwd_kernel, one block of 256 a row (rows any "
+             "stride apart), 16-byte vectors where aligned, online max and "
+             "sum of exponentials in float32, lse and nll a row; "
+             "ce_bwd_kernel reads the row again and writes (softmax - "
+             "onehot) * dnll once, in the logits' dtype and row layout; "
+             "dnll read on the device")
+# (label, rows, V, row stride): the stream cell's padded logits and the
+# Qwen3 cells'
+CE_SHAPES = (("gpt2_stream", 65536, 50257, 50304),
+             ("qwen3", 16384, 151936, 151936))
+# the kernels against the plain passes: nll |got - want| / max(|want|, 1);
+# the gradient within one bf16 ulp of the plain pass's (float32: its
+# log-sum-exp's round-off, CE_GRAD_RTOL), plus CE_TARGET_SLACK x dnll at
+# each row's target, where p d - d cancels as p nears 1
+CE_NLL_RTOL = 2e-6
+CE_GRAD_RTOL = 2e-5
+CE_TARGET_SLACK = 2e-6
+CE_CHUNK = 4096                   # rows of a plain comparison at a time
 FLASH_SOURCE = "neuralnetworklibrary_tpu_torch/csrc/flash_attention.cu"
 FLASH_REPLACES = {
     "flash_fwd": "neuralnetworklibrary_tpu/ops/flash_attention.py:119",
@@ -1688,6 +1728,145 @@ def phase_adam(seed):
     return worst, rows
 
 
+def bf16_ulp(v):
+    """One bf16 ulp at each float32 value of ``v`` (the smallest normal's
+    at 0)."""
+    _, e = torch.frexp(v.abs().clamp_min(torch.finfo(torch.bfloat16).tiny))
+    return torch.ldexp(torch.ones_like(v), e - 8)
+
+
+def ce_logits(rows, vocab, ld, dtype, seed):
+    """(rows, vocab) logits normal(0, 3) in ``dtype``, a view into rows
+    ``ld`` apart whose other columns hold NaN, and targets in [0, vocab)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    buf = torch.empty((rows, ld), dtype=dtype, device="cuda")
+    buf[:, :vocab] = (3 * torch.randn((rows, vocab), generator=g,
+                                      device="cuda")).to(dtype)
+    buf[:, vocab:] = float("nan")
+    t = torch.randint(0, vocab, (rows,), generator=g, device="cuda")
+    return buf[:, :vocab], t
+
+
+def ce_check(x, t):
+    """The kernels through ``ops.cross_entropy`` (forward, and backward
+    from an upstream gradient of 3.7 / N a row held on the card) against
+    the plain passes on the same inputs: (worst nll gap over
+    max(|nll|, 1), worst gradient gap over its bound, launches)."""
+    from neuralnetworklibrary_tpu_torch.ops import cross_entropy as ce
+
+    rows, vocab = x.shape
+    before = ce.cross_entropy.launches
+    xg = x.detach().requires_grad_()
+    nll = ce.cross_entropy(xg, t)
+    scale = torch.tensor(3.7 / rows, device="cuda")
+    (g,) = torch.autograd.grad(nll.sum() * scale, xg)
+    launches = ce.cross_entropy.launches - before
+    nll = nll.detach()
+    if g.dtype != x.dtype or g.stride() != x.stride():
+        fail(f"cross_entropy: a {g.dtype} gradient of strides {g.stride()} "
+             f"for {x.dtype} logits of strides {x.stride()}")
+    dnll = scale.expand(rows).contiguous()
+    worst_nll = worst_g = 0.0
+    for a in range(0, rows, CE_CHUNK):
+        xs, ts, ds = x[a:a + CE_CHUNK], t[a:a + CE_CHUNK], dnll[a:a + CE_CHUNK]
+        lse, want = ce._plain_forward(xs, ts)
+        worst_nll = max(worst_nll, float(((nll[a:a + CE_CHUNK] - want).abs()
+                                          / want.abs().clamp_min(1)).max()))
+        gw = torch.empty_like(xs)
+        ce._plain_backward(xs, ts, lse, ds, gw)
+        gap = (g[a:a + CE_CHUNK].float() - gw.float()).abs_()
+        bound = (bf16_ulp(gw.float()) if x.dtype == torch.bfloat16
+                 else CE_GRAD_RTOL * gw.abs() + 1e-12)
+        bound.scatter_add_(1, ts[:, None], CE_TARGET_SLACK * ds[:, None])
+        worst_g = max(worst_g, float((gap / bound).max()))
+        del lse, want, gw, gap, bound
+    return worst_nll, worst_g, launches
+
+
+def phase_cross_entropy(seed):
+    """The cross-entropy kernels against the plain passes, then timed (see
+    the module's docstring)."""
+    import torch.nn.functional as F
+
+    from neuralnetworklibrary_tpu_torch.ops import cross_entropy as ce
+
+    timer = Timer()
+    rows_out, checks = {}, []
+    for k, (label, rows, vocab, ld) in enumerate(CE_SHAPES):
+        for dtype in (torch.bfloat16, torch.float32):
+            x, t = ce_logits(rows, vocab, ld, dtype, seed * 100 + k)
+            if ce.rows(x)[1] != ld:
+                fail(f"cross_entropy at {label}: the logits' rows were "
+                     f"copied, not read {ld} apart")
+            nll_gap, g_ratio, launches = ce_check(x, t)
+            checks.append({"shape": label, "dtype": str(dtype),
+                           "nll_rel_gap": nll_gap,
+                           "grad_gap_over_bound": g_ratio,
+                           "launches": launches})
+            if launches != 2:
+                fail(f"cross_entropy at {label} {dtype}: {launches} "
+                     f"launches, not a forward and a backward")
+            if not (nll_gap <= CE_NLL_RTOL and g_ratio <= 1.0):
+                fail(f"cross_entropy at {label} {dtype}: nll gap "
+                     f"{nll_gap} (tol {CE_NLL_RTOL} relative), gradient "
+                     f"gap {g_ratio} of its bound")
+            del x, t
+            torch.cuda.empty_cache()
+
+        # bf16, as the cells run it: the two kernels, the plain passes and
+        # the float32 chain the port ran before
+        x, t = ce_logits(rows, vocab, ld, torch.bfloat16, seed * 100 + k)
+        dnll = torch.full((rows,), 1.0 / rows, device="cuda")
+        out = torch.empty((rows, ld), dtype=torch.bfloat16, device="cuda")
+        lse = torch.empty(rows, device="cuda")
+        nll = torch.empty(rows, device="cuda")
+        code = ce.DTYPES[torch.bfloat16]
+
+        def kernel_fwd():
+            ce._launch("nnl_cross_entropy_fwd", x, x.data_ptr(), code, rows,
+                       vocab, ld, t.data_ptr(), lse.data_ptr(),
+                       nll.data_ptr())
+
+        def kernel_bwd():
+            ce._launch("nnl_cross_entropy_bwd", x, x.data_ptr(), code, rows,
+                       vocab, ld, t.data_ptr(), lse.data_ptr(),
+                       dnll.data_ptr(), out.data_ptr(), ld)
+
+        def kernels():
+            kernel_fwd()
+            kernel_bwd()
+
+        def plain():
+            lse_p, _ = ce._plain_forward(x, t)
+            ce._plain_backward(x, t, lse_p, dnll, out[:, :vocab])
+
+        def chain():
+            xr = x.detach().requires_grad_()
+            F.cross_entropy(xr.float(), t, reduction="none").backward(dnll)
+
+        fwd = timer.stats(kernel_fwd, reps=10, warmup=2)
+        bwd = timer.stats(kernel_bwd, reps=10, warmup=2)
+        both = timer.stats(kernels, reps=10, warmup=2)
+        plain_t = timer.stats(plain, reps=5, warmup=1)
+        try:
+            chain_t = timer.stats(chain, reps=5, warmup=1)
+        except torch.OutOfMemoryError:
+            chain_t = None
+        bound_ms = 3 * rows * vocab * 2 / HBM_BYTES_PER_S * 1e3
+        rows_out[label] = {
+            "rows": rows, "vocab": vocab, "ld": ld,
+            "fwd_ms": fwd["ms"], "bwd_ms": bwd["ms"],
+            **timed_row(both, plain_t, chain_t, (bound_ms, "bytes")),
+            "share_of_bound": bound_ms / both["ms"]}
+        del x, t, dnll, out, lse, nll
+        torch.cuda.empty_cache()
+    emit({"phase": "cross_entropy", "kernel": "cross_entropy",
+          "tol": f"nll {CE_NLL_RTOL} relative; gradient one bf16 ulp "
+                 f"(float32: {CE_GRAD_RTOL} relative) + {CE_TARGET_SLACK} "
+                 f"dnll at the target", "checks": checks, **rows_out})
+    return checks, rows_out
+
+
 # fused Adam kernel counts of each training phase (adam_counted)
 ADAM_PATHS = {}
 
@@ -1959,6 +2138,9 @@ def phase_train(seed, profile=False):
     )
     from neuralnetworklibrary_tpu_torch.learner import Learner
     from neuralnetworklibrary_tpu_torch.nn.transformer import TransformerLM
+    from neuralnetworklibrary_tpu_torch.ops.cross_entropy import (
+        cross_entropy,
+    )
     from neuralnetworklibrary_tpu_torch.ops.flash_attention import (
         flash_bwd_dkv,
         flash_bwd_dq,
@@ -2015,7 +2197,8 @@ def phase_train(seed, profile=False):
         learner.init_optimizer(wd=1e-6)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        counted = (flash_fwd, flash_bwd_dq, flash_bwd_dkv, padded_head)
+        counted = (flash_fwd, flash_bwd_dq, flash_bwd_dkv, padded_head,
+                   cross_entropy)
         for fn in counted:
             fn.launches = 0
         losses, step_s = [], []
@@ -2037,11 +2220,13 @@ def phase_train(seed, profile=False):
         fail(f"evaluate gave {val_loss}")
     n_eval = len(data.val_dl)
     # the 50,257-row head runs padded (ops/padded_head.py) in every
-    # full-sequence forward: one product a step and one an eval batch
+    # full-sequence forward: one product a step and one an eval batch; the
+    # CE kernels run forward and backward a step, forward an eval batch
     want = {"flash_fwd": L * (10 + n_eval), "flash_bwd_dq": L * 10,
-            "flash_bwd_dkv": L * 10, "padded_head": 10 + n_eval}
+            "flash_bwd_dkv": L * 10, "padded_head": 10 + n_eval,
+            "cross_entropy": 2 * 10 + n_eval}
     if launches != want:
-        fail(f"flash kernel and padded head launches {launches} != {want}")
+        fail(f"flash, padded head and CE launches {launches} != {want}")
     steady = statistics.median(step_s[1:])
     emit({"phase": "train", "model": "gpt2-124m", "setup_s": setup_s,
           "f32_flash_vs_einsum_loss_abs_err": loss_err,
@@ -2687,6 +2872,9 @@ def phase_lm(seed, profile=False):
         predict_from_string,
     )
     from neuralnetworklibrary_tpu_torch.learner import Learner
+    from neuralnetworklibrary_tpu_torch.ops.cross_entropy import (
+        cross_entropy,
+    )
     from neuralnetworklibrary_tpu_torch.ops.lstm_scan import (
         lstm_bwd,
         lstm_fwd,
@@ -2758,7 +2946,7 @@ def phase_lm(seed, profile=False):
         learner.init_optimizer(wd=1e-6)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        lstm_fwd.launches = lstm_bwd.launches = 0
+        lstm_fwd.launches = lstm_bwd.launches = cross_entropy.launches = 0
         losses, step_s = [], []
         for _ in range(steps):
             t0 = time.perf_counter()
@@ -2770,7 +2958,8 @@ def phase_lm(seed, profile=False):
         torch.cuda.synchronize()
         eval_s = time.perf_counter() - t0
         launches = {"lstm_fwd": lstm_fwd.launches,
-                    "lstm_bwd": lstm_bwd.launches}
+                    "lstm_bwd": lstm_bwd.launches,
+                    "cross_entropy": cross_entropy.launches}
         peak = torch.cuda.max_memory_allocated()
         prompt = "w5 w6 w7 w8 w9"
         lstm_fwd.launches = 0
@@ -2786,9 +2975,13 @@ def phase_lm(seed, profile=False):
     if not np.isfinite(val[0]):
         fail(f"AWD-LSTM evaluate gave {val}")
     n_eval = len(data.val_dl)
-    want = {"lstm_fwd": L * (steps + n_eval), "lstm_bwd": L * steps}
+    # RegSeqCrossEntropyLoss takes each token's CE of the float32 logits
+    # through the kernels: forward and backward a step, forward an eval
+    # batch
+    want = {"lstm_fwd": L * (steps + n_eval), "lstm_bwd": L * steps,
+            "cross_entropy": 2 * steps + n_eval}
     if launches != want:
-        fail(f"lstm kernel launches {launches} != {want}")
+        fail(f"lstm and CE kernel launches {launches} != {want}")
     words = text.split()
     n_prompt = len(prompt.split())
     if len(words) != n_prompt + 16 or not all(w in data.stoi for w in words):
@@ -4928,6 +5121,9 @@ def phase_qwen3(seed, profile=False):
         chunked_softmax_ce,
         dense_softmax_ce,
     )
+    from neuralnetworklibrary_tpu_torch.ops.cross_entropy import (
+        cross_entropy,
+    )
 
     c, t = QWEN3, QWEN3_TRAFFIC
     B, L, T = t["B"], c["n_layers"], t["T"]
@@ -4947,7 +5143,8 @@ def phase_qwen3(seed, profile=False):
                             prefetch=0),
         val_dl=DataLoader(ArrayDataset(x[n_train:], y[n_train:]), B,
                           prefetch=0))
-    counted = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    counted = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv,
+               cross_entropy)
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         learner = Learner(tmp, data, model, "Adam2",
@@ -4975,9 +5172,10 @@ def phase_qwen3(seed, profile=False):
         losses = [float(v) for v in losses]
         want = {"flash_fwd": L * (t["steps"] + t["eval_batches"]),
                 "flash_bwd_dq": L * t["steps"],
-                "flash_bwd_dkv": L * t["steps"]}
+                "flash_bwd_dkv": L * t["steps"],
+                "cross_entropy": 2 * t["steps"] + t["eval_batches"]}
         if launches != want:
-            fail(f"qwen3 flash kernel launches {launches} != {want}")
+            fail(f"qwen3 flash and CE kernel launches {launches} != {want}")
         if not (all(np.isfinite(losses)) and np.isfinite(val_loss)
                 and max(losses[-3:]) < losses[0]):
             fail(f"qwen3 losses not finite and falling: {losses}, val "
@@ -5016,13 +5214,17 @@ def phase_qwen3(seed, profile=False):
         learner.init_optimizer(wd=t["wd"])
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        cross_entropy.launches = 0
         f_losses, f_secs = timed_steps(learner, batch, t["lr"],
                                        t["fused_steps"])
         f_peak = torch.cuda.max_memory_allocated()
+        f_ce = cross_entropy.launches
         del learner
     model.fused_ce = False
     if not all(np.isfinite(f_losses)):
         fail(f"qwen3 fused CE losses {f_losses}")
+    if f_ce:
+        fail(f"qwen3 fused CE steps launched the CE kernels {f_ce} times")
     out["fused_ce"] = {"chunk": 8192, "loss_on_batch": fused,
                        "materialised_loss_on_batch": dense,
                        "rel_err": abs(fused - dense) / abs(dense),
@@ -5304,6 +5506,7 @@ def main():
     flash_err = phase_flash_kernel(args.seed)
     edge_err = phase_flash_edges(args.seed)
     adam_err, adam_rows = phase_adam(args.seed)
+    ce_checks, ce_rows = phase_cross_entropy(args.seed)
     launches = phase_serve(args.seed, args.profile)
     flash_launches = adam_counted("train", phase_train, args.seed,
                                   args.profile)
@@ -5399,6 +5602,26 @@ def main():
         **{k: adam_rows["qwen3_0.6b"][k] for k in TIMED_KEYS},
         "sdar_30b_a3b": {k: adam_rows["sdar_30b_a3b"][k]
                          for k in TIMED_KEYS}})
+    # the cross-entropy kernels: a kernel of the port alone, at the stream
+    # cell's padded logits with the Qwen3 cells' beside them; launches
+    # over the training paths that hold them to an exact count
+    by_path = {"train": flash_launches["cross_entropy"],
+               "lm": lstm_launches["cross_entropy"],
+               "qwen3": qwen3_launches["cross_entropy"]}
+    kernels.append({
+        "name": "cross_entropy", "route": "cuda", "source": CE_SOURCE,
+        "design": CE_DESIGN, "replaces": CE_REPLACES,
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "launches_counted": "ce_fwd_kernel once a loss call, ce_bwd_kernel "
+                            "once a backward",
+        "max_err": max(c["nll_rel_gap"] for c in ce_checks),
+        "grad_gap_over_bound": max(c["grad_gap_over_bound"]
+                                   for c in ce_checks),
+        "tol": f"nll {CE_NLL_RTOL} relative; gradient one bf16 ulp "
+               f"(float32: {CE_GRAD_RTOL} relative)",
+        "shape": "gpt2_stream",
+        **{k: ce_rows["gpt2_stream"][k] for k in TIMED_KEYS},
+        "qwen3": {k: ce_rows["qwen3"][k] for k in TIMED_KEYS}})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

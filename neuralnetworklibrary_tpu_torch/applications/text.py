@@ -915,7 +915,11 @@ class FusedRegSeqCrossEntropyLoss:
 class SeqCrossEntropyLoss:
     """Unregularized sequence CE (Text.py:779-788), the quantity reported
     as val loss for LMs: the softmax CE of every token of the valid rows,
-    averaged.  Tuple outputs unwrap to their first element."""
+    averaged.  Tuple outputs unwrap to their first element.  A CE and
+    nothing else, so the Learner hands it the model's own logits (bf16
+    under autocast), which ``ops.cross_entropy`` reads in float32."""
+
+    takes_model_dtype = True
 
     def __call__(self, outputs, target, mask=None):
         return seq_cross_entropy_loss(outputs, target, mask)

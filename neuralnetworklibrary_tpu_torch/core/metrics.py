@@ -20,6 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from neuralnetworklibrary_tpu_torch.ops.cross_entropy import cross_entropy
+
 
 def masked_mean(values: torch.Tensor, mask=None) -> torch.Tensor:
     """Mean over all elements, counting only rows where mask is 1."""
@@ -197,11 +199,12 @@ def is_end_metric(m) -> bool:
 
 def seq_cross_entropy_loss(y_pred, y, mask=None):
     """Token-level CE over (B, T, V) logits vs (B, T) targets (or (N, C)
-    vs (N,)); tuple model outputs unwrap to their first element."""
+    vs (N,)); tuple model outputs unwrap to their first element.  The
+    logits may be in the model's dtype: each token's CE is taken in float32
+    by ``ops.cross_entropy`` (its kernels on a CUDA device)."""
     if isinstance(y_pred, tuple):
         y_pred = y_pred[0]
-    logp = F.log_softmax(y_pred, dim=-1)
-    return masked_mean(-logp.gather(-1, y.long()[..., None])[..., 0], mask)
+    return masked_mean(cross_entropy(y_pred, y), mask)
 
 
 # the loss a Learner takes for loss_func="default", by data.target_type

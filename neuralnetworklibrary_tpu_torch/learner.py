@@ -354,9 +354,13 @@ class Learner:
             with self._autocast():
                 y_pred = self.model(*xs, **self._model_kwargs(True))
         with tracing.span("learner.loss", device=True):
-            loss = self._apply_loss(_to_f32(y_pred), y, mask)
-        # the backward needs the float32 copies the loss took, not the
-        # model's own outputs (an LM's (B, T, V) bf16 logits): free them
+            # a CE alone reads the model's own logits (bf16 under autocast)
+            # in float32 itself; any other loss takes float32 copies
+            if not getattr(self.loss_func, "takes_model_dtype", False):
+                y_pred = _to_f32(y_pred)
+            loss = self._apply_loss(y_pred, y, mask)
+        # the backward needs what the loss saved (a CE's bf16 logits and one
+        # float a row, or the float32 copies), not this reference: free it
         del y_pred
         with tracing.span("learner.backward", device=True):
             loss.backward()

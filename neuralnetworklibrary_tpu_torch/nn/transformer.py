@@ -60,6 +60,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from neuralnetworklibrary_tpu_torch.ops.cross_entropy import cross_entropy
 from neuralnetworklibrary_tpu_torch.ops.flash_attention import (
     flash_attention,
     use_flash,
@@ -953,15 +954,17 @@ class PackedSeqCrossEntropyLoss:
     ``TransformerLM(reset_at=...)``; JAX transformer.py:1690): targets
     equal to ``pad_token`` are left out token by token, and the loader's
     (B,) row mask composes in.  The mean over a batch of packed rows equals
-    the per-document mean over the same tokens."""
+    the per-document mean over the same tokens.  A CE and nothing else, so
+    the Learner hands it the model's own logits (bf16 under autocast),
+    which ``ops.cross_entropy`` reads in float32."""
+
+    takes_model_dtype = True
 
     def __init__(self, pad_token: int):
         self.pad_token = int(pad_token)
 
     def __call__(self, outputs, target, mask=None):
         preds = outputs[0] if isinstance(outputs, tuple) else outputs
-        nll = F.cross_entropy(preds.reshape(-1, preds.shape[-1]),
-                              target.reshape(-1).long(),
-                              reduction="none").view(target.shape)
+        nll = cross_entropy(preds, target)
         w = (target != self.pad_token).float() * token_mask(target, mask)
         return (nll * w).sum() / w.sum().clamp_min(1.0)

@@ -13,9 +13,12 @@ model width.  The mathematics is ``F.linear(h, weight)``'s: the same
 operands in the same dtype (autocast's, where it is on), float32
 accumulation, and logits of shape (..., V) with the same values, a view
 whose row stride is ``Vp``.  The pad columns of the logits are never read,
-and those of the gradient are zero: the backward copies the (N, V)
-gradient into the padded buffer and zeroes its pad (:func:`pad_rows`).
-:func:`pads_head` says where a product takes it.
+and those of the gradient are zero.  A gradient that arrives in the
+logits' own layout, the (..., V) view of an (N, Vp) buffer (the
+cross-entropy's, ``ops/cross_entropy.py``), is that padded buffer: the
+backward zeroes its pad columns in place (:func:`padded_buffer`).  Any
+other gradient it copies into a padded buffer and zeroes its pad
+(:func:`pad_rows`).  :func:`pads_head` says where a product takes it.
 """
 
 from __future__ import annotations
@@ -48,6 +51,23 @@ def pad_rows(g, out):
     return out
 
 
+def padded_buffer(g, rows: int, vp: int):
+    """The (rows, vp) matrix of which ``g`` (..., V) is the first V
+    columns, its rows vp elements apart in one storage, or None where ``g``
+    is laid out otherwise."""
+    if g.stride(-1) != 1 or g.numel() != rows * g.shape[-1]:
+        return None
+    want = vp
+    for size, stride in zip(g.shape[-2::-1], g.stride()[-2::-1]):
+        if size != 1 and stride != want:
+            return None
+        want *= size
+    need = (g.storage_offset() + rows * vp) * g.element_size()
+    if g.untyped_storage().nbytes() < need:
+        return None
+    return g.as_strided((rows, vp), (vp, 1))
+
+
 class _PaddedHead(torch.autograd.Function):
 
     @staticmethod
@@ -69,9 +89,13 @@ class _PaddedHead(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        V = g.shape[-1]
-        gp = pad_rows(g, torch.empty(
-            (x.shape[0], w.shape[0]), dtype=w.dtype, device=w.device))
+        V, (N, Vp) = g.shape[-1], (x.shape[0], w.shape[0])
+        gp = padded_buffer(g, N, Vp) if g.dtype == w.dtype else None
+        if gp is None:
+            gp = pad_rows(g, torch.empty((N, Vp), dtype=w.dtype,
+                                         device=w.device))
+        else:
+            gp[:, V:].zero_()
         dh = dw = None
         if ctx.needs_input_grad[0]:
             dh = (gp @ w).view(ctx.shape).to(ctx.dtypes[0])

@@ -216,6 +216,7 @@ def counters() -> dict:
     copies here, numbers in :func:`snapshot`."""
     from neuralnetworklibrary_tpu_torch.ops import (
         adam,
+        cross_entropy,
         flash_attention,
         lstm_scan,
         moe,
@@ -227,7 +228,7 @@ def counters() -> dict:
            flash_attention.flash_bwd_dkv, flash_attention.flash_bwd_dbias,
            lstm_scan.lstm_fwd, lstm_scan.lstm_bwd,
            paged_attention.paged_attention, padded_head.padded_head,
-           moe.moe_experts, adam.adam)
+           moe.moe_experts, adam.adam, cross_entropy.cross_entropy)
     out = {f"{fn.__name__}.launches": fn.launches for fn in fns}
     out["adam.elements"] = adam.adam.elements
     out["moe_experts.assignments"] = moe.assignments()

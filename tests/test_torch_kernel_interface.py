@@ -17,6 +17,7 @@ import torch
 
 from neuralnetworklibrary_tpu_torch.kernels import build
 from neuralnetworklibrary_tpu_torch.ops import adam
+from neuralnetworklibrary_tpu_torch.ops import cross_entropy as ce
 from neuralnetworklibrary_tpu_torch.ops import flash_attention as fa
 from neuralnetworklibrary_tpu_torch.ops import lstm_scan as ls
 from neuralnetworklibrary_tpu_torch.ops import paged_attention as pa
@@ -49,7 +50,8 @@ def _c_signatures(path):
 
 
 # the ctypes table of each csrc/*.cu
-_TABLES = {"adam": adam.SIGNATURES, "flash_attention": fa.SIGNATURES,
+_TABLES = {"adam": adam.SIGNATURES, "cross_entropy": ce.SIGNATURES,
+           "flash_attention": fa.SIGNATURES,
            "lstm_scan": ls.SIGNATURES, "paged_attention": pa.SIGNATURES}
 _C = {source: _c_signatures(build.CSRC / f"{source}.cu")
       for source in build.sources()}

@@ -222,8 +222,9 @@ def test_the_flash_backward_span_and_counters(fake_kernels):
         "lstm_fwd.launches", "lstm_bwd.launches", "paged_attention.launches",
         "padded_head.launches", "moe_experts.launches",
         "moe_experts.assignments", "adam.launches", "adam.elements",
-        "flash_bwd_dkv.query_tiles", "flash_bwd_dkv.causal_query_tiles",
-        "attention.sliding_pairs", "attention.full_pairs"}
+        "cross_entropy.launches", "flash_bwd_dkv.query_tiles",
+        "flash_bwd_dkv.causal_query_tiles", "attention.sliding_pairs",
+        "attention.full_pairs"}
     from neuralnetworklibrary_tpu_torch.ops import lstm_scan, paged_attention
 
     assert counters["flash_bwd_dkv.launches"] == fa.flash_bwd_dkv.launches
